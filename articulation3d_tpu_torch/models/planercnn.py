@@ -1,0 +1,240 @@
+"""PlaneRCNN meta-architecture, eval-mode forward.
+
+Counterpart of `articulation3d_tpu/models/planercnn.py` (`features`,
+`_pool`, `inference`, `inference_probe`):
+
+    R50 -> FPN -> RPN -> box pool + box head + class-wise NMS ->
+      cascade on the final boxes: mask -> plane -> axis    -> depth head
+
+Module names are the detectron2 checkpoint's (`backbone`,
+`proposal_generator`, `roi_heads.{box_head,box_predictor,mask_head,
+plane_head,axis_head}`, `depth_head`), so a d2 state dict loads with
+`load_state_dict`.  Pooler conventions of the reference: box ROIAlignV2
+7x7 sampling ratio 0; mask ROIAlign 14x14 ratio 2; plane/axis ROIAlign
+14x14 ratio 0.
+
+The trunk and heads run NCHW in `model.dtype` (bfloat16 through autocast,
+weights float32); features, ROI outputs and depth are float32.  The ROI
+poolers take the p2..p5 maps channels-last, permuted once per forward.
+The refine head and the training forward are not ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+from ..config import Config
+from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align_cuda import multilevel_roi_align_cuda
+from ..structures import Detections, resolve_device
+from .depth_head import DepthHead
+from .fpn import FPN
+from .heads import (AxisHead, BoxHead, BoxPredictor, MaskHead, PlaneHead,
+                    fast_rcnn_inference)
+from .resnet import ResNet
+from .rpn import RPN
+
+ROI_STRIDES = (4, 8, 16, 32)  # p2..p5
+
+
+class ROIHeads(nn.Module):
+    """Container with the reference's `roi_heads.*` key names."""
+
+    def __init__(self, config: Config):
+        super().__init__()
+        mcfg = config.model
+        nc = mcfg.roi_heads.num_classes
+        c = mcfg.fpn.out_channels
+        self.box_head = BoxHead(mcfg.box_head, c)
+        self.box_predictor = BoxPredictor(mcfg.box_head, nc)
+        if mcfg.mask_on:
+            self.mask_head = MaskHead(mcfg.mask_head, nc, c)
+        if mcfg.plane_on:
+            self.plane_head = PlaneHead(mcfg.plane_head, c)
+        if mcfg.axis_on:
+            self.axis_head = AxisHead(mcfg.axis_head, c)
+
+
+class PlaneRCNN(nn.Module):
+    def __init__(self, config: Config):
+        super().__init__()
+        mcfg = config.model
+        if mcfg.refine_on:
+            raise NotImplementedError("the refine head is not ported yet")
+        self.config = config
+        self.compute_dtype = (torch.bfloat16 if mcfg.dtype == "bfloat16"
+                              else torch.float32)
+        self.backbone = FPN(ResNet(mcfg.resnet), mcfg.fpn)
+        self.proposal_generator = RPN(mcfg.rpn, mcfg.anchors, mcfg.fpn.out_channels)
+        self.roi_heads = ROIHeads(config)
+        if mcfg.depth_on:
+            self.depth_head = DepthHead(mcfg.depth_head, mcfg.fpn.out_channels)
+
+    def _autocast(self, device: torch.device):
+        if self.compute_dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(device.type, dtype=self.compute_dtype)
+
+    # ------------------------------------------------------------------ #
+    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images: preprocessed (B, H, W, 3) -> {p2..p6} float32 NCHW maps."""
+        x = images.permute(0, 3, 1, 2).contiguous()
+        with self._autocast(x.device):
+            feats = self.backbone(x)
+        return {k: v.to(torch.float32) for k, v in feats.items()}
+
+    def _pooler_impl(self, device: torch.device) -> str:
+        impl = self.config.model.roi_pooler_impl
+        if impl == "auto":
+            return "cuda" if device.type == "cuda" else "torch"
+        if impl not in ("cuda", "torch"):
+            raise ValueError(f"unknown roi_pooler_impl {impl!r}")
+        return impl
+
+    def roi_features(self, features: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """p2..p5 permuted once to channels-last (B, H, W, C), in the dtype
+        the configured pooler reads (the compute dtype for the kernel,
+        float32 for the gather formulation, as in the JAX package)."""
+        feats = [features[f] for f in self.config.model.roi_heads.in_features]
+        dtype = (self.compute_dtype if self._pooler_impl(feats[0].device) == "cuda"
+                 else torch.float32)
+        return [f.permute(0, 2, 3, 1).contiguous().to(dtype) for f in feats]
+
+    def _pool(self, roi_feats: List[torch.Tensor], boxes: torch.Tensor, *,
+              resolution: int, sampling_ratio: int, aligned: bool,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Multilevel ROIAlign over the batch: (B, N, 4) -> (B, N, P, P, C).
+        With the kernel, invalid ROIs pool to zeros at no cost."""
+        kw = dict(strides=ROI_STRIDES, output_size=resolution,
+                  sampling_ratio=sampling_ratio, aligned=aligned)
+        if self._pooler_impl(boxes.device) == "cuda":
+            return multilevel_roi_align_cuda(roi_feats, boxes, valid=valid, **kw)
+        return torch.stack([
+            multilevel_roi_align([f[i] for f in roi_feats], boxes[i], chunk=32, **kw)
+            for i in range(boxes.shape[0])])
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def inference(self, images: torch.Tensor,
+                  gt_boxes: Optional[torch.Tensor] = None,
+                  gt_classes: Optional[torch.Tensor] = None,
+                  gt_valid: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """Eval-mode forward on preprocessed (B, H, W, 3) frames.
+
+        gt_*: optional (B, N, ...) boxes that replace detection (the
+        reference's TEST.EVAL_GT_BOX path).  Returns dict(detections=
+        Detections, depth=(B, H_out, W_out), pool_valid={stage: (B,) valid
+        ROI counts}, features, proposals).
+        """
+        cfg = self.config
+        mcfg = cfg.model
+        h, w = cfg.input.height, cfg.input.width
+        feats = self.features(images)
+        roi_feats = self.roi_features(feats)
+        pool_valid: Dict[str, torch.Tensor] = {}
+        proposals = None
+
+        if gt_boxes is not None:
+            dets = {"boxes": gt_boxes, "scores": gt_valid.to(torch.float32),
+                    "classes": gt_classes, "valid": gt_valid}
+        else:
+            with self._autocast(images.device):
+                proposals = self.proposal_generator(feats, image_height=h,
+                                                    image_width=w)
+            b, k = proposals["boxes"].shape[:2]
+            pooled = self._pool(roi_feats, proposals["boxes"],
+                                resolution=mcfg.box_head.pooler_resolution,
+                                sampling_ratio=mcfg.box_head.pooler_sampling_ratio,
+                                aligned=True, valid=proposals["valid"])
+            pool_valid["box"] = proposals["valid"].sum(dim=1)
+            with self._autocast(images.device):
+                x = self.roi_heads.box_head(pooled.reshape(b * k, *pooled.shape[2:]))
+            scores, deltas = self.roi_heads.box_predictor(x)
+            dets = fast_rcnn_inference(
+                scores.reshape(b, k, -1), deltas.reshape(b, k, -1),
+                proposals["boxes"], proposals["valid"], image_height=h,
+                image_width=w, cfg=mcfg.roi_heads,
+                bbox_reg_weights=mcfg.box_head.bbox_reg_weights)
+
+        out = dict(dets)
+        b, d = dets["boxes"].shape[:2]
+        det_pool = dict(aligned=False, valid=dets["valid"])
+        shared = None
+        if (mcfg.share_detection_pool and mcfg.mask_on
+                and (mcfg.plane_on or mcfg.axis_on)
+                and mcfg.mask_head.pooler_resolution == mcfg.plane_head.pooler_resolution):
+            shared = self._pool(roi_feats, dets["boxes"],
+                                resolution=mcfg.plane_head.pooler_resolution,
+                                sampling_ratio=mcfg.plane_head.pooler_sampling_ratio,
+                                **det_pool)
+            pool_valid["shared"] = dets["valid"].sum(dim=1)
+        if mcfg.mask_on:
+            if shared is None:
+                mp = self._pool(roi_feats, dets["boxes"],
+                                resolution=mcfg.mask_head.pooler_resolution,
+                                sampling_ratio=mcfg.mask_head.pooler_sampling_ratio,
+                                **det_pool)
+                pool_valid["mask"] = dets["valid"].sum(dim=1)
+            else:
+                mp = shared
+            with self._autocast(images.device):
+                logits = self.roi_heads.mask_head(mp.reshape(b * d, *mp.shape[2:]))
+            probs = torch.sigmoid(logits)
+            if mcfg.mask_head.cls_agnostic:
+                probs = probs[:, 0]
+            else:
+                cls = dets["classes"].reshape(b * d).long()
+                probs = probs[torch.arange(b * d, device=probs.device), cls]
+            out["masks"] = probs.reshape(b, d, *probs.shape[1:])
+
+        if mcfg.plane_on or mcfg.axis_on:
+            if shared is None:
+                pp = self._pool(roi_feats, dets["boxes"],
+                                resolution=mcfg.plane_head.pooler_resolution,
+                                sampling_ratio=mcfg.plane_head.pooler_sampling_ratio,
+                                **det_pool)
+                pool_valid["plane"] = dets["valid"].sum(dim=1)
+            else:
+                pp = shared
+            flat = pp.reshape(b * d, *pp.shape[2:])
+            with self._autocast(images.device):
+                if mcfg.plane_on:
+                    out["planes"] = self.roi_heads.plane_head(flat).reshape(b, d, -1)
+                if mcfg.axis_on:
+                    rot, tran = self.roi_heads.axis_head(flat)
+                    out["rot_axis"] = rot.reshape(b, d, -1)
+                    out["tran_axis"] = tran.reshape(b, d, -1)
+
+        result: Dict[str, Any] = {
+            "detections": Detections(
+                boxes=out["boxes"], scores=out["scores"], classes=out["classes"],
+                valid=out["valid"], masks=out.get("masks"),
+                planes=out.get("planes"), rot_axis=out.get("rot_axis"),
+                tran_axis=out.get("tran_axis")),
+            "pool_valid": pool_valid,
+            "features": feats,
+            "proposals": proposals,
+        }
+        if mcfg.depth_on:
+            with self._autocast(images.device):
+                result["depth"] = self.depth_head(feats).to(torch.float32)
+        return result
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        return self.inference(images)
+
+
+def build_model(config: Config, device=None,
+                state_dict: Optional[Dict[str, Any]] = None) -> PlaneRCNN:
+    """PlaneRCNN in eval mode on `device` (the card unless the caller names
+    another), optionally loaded from a d2-schema state dict."""
+    dev = resolve_device(device)
+    model = PlaneRCNN(config)
+    if state_dict is not None:
+        from ..weights import load_d2_state_dict
+        load_d2_state_dict(model, state_dict)
+    return model.to(dev).eval()

@@ -1,0 +1,134 @@
+"""Region Proposal Network: anchors, head, fixed-capacity proposal selection.
+
+Counterpart of `articulation3d_tpu/models/rpn.py` (detectron2 RPN /
+StandardRPNHead / DefaultAnchorGenerator / find_top_rpn_proposals): one
+anchor size per level x ratios (0.5, 1, 2), offset 0; per level the top
+`pre_nms_topk` anchors by objectness are decoded (weights 1,1,1,1),
+clipped, filtered (non-empty, finite) and NMS'd at 0.7; across levels the
+top `post_nms_topk` survivors are kept.  The batch is a leading dimension,
+and the result is a fixed-capacity (B, K, 4) array with a valid mask.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import AnchorConfig, RPNConfig
+from ..ops.box_ops import clip_boxes, decode_deltas, nonempty
+from ..ops.nms import NEG_INF, nms_mask, select_top, top_k
+from .fpn import FPN_STRIDES
+
+
+def generate_cell_anchors(size: float, aspect_ratios: Sequence[float]) -> np.ndarray:
+    """detectron2 `generate_cell_anchors`: centred XYXY anchors of one size."""
+    anchors = []
+    area = size * size
+    for ar in aspect_ratios:
+        w = math.sqrt(area / ar)
+        h = ar * w
+        anchors.append([-w / 2.0, -h / 2.0, w / 2.0, h / 2.0])
+    return np.asarray(anchors, np.float32)
+
+
+def anchors_for_level(feat_h: int, feat_w: int, stride: int, size: float,
+                      aspect_ratios: Sequence[float], offset: float = 0.0) -> np.ndarray:
+    """(H*W*A, 4) anchors of one level, row-major over (y, x, anchor)."""
+    cell = generate_cell_anchors(size, aspect_ratios)
+    sx, sy = np.meshgrid((np.arange(feat_w) + offset) * stride,
+                         (np.arange(feat_h) + offset) * stride)
+    shifts = np.stack([sx, sy, sx, sy], axis=-1).astype(np.float32)
+    return (shifts[:, :, None, :] + cell[None, None, :, :]).reshape(-1, 4)
+
+
+class RPNHead(nn.Module):
+    """StandardRPNHead: 3x3 conv + relu -> 1x1 objectness and 1x1 deltas."""
+
+    def __init__(self, in_channels: int, num_anchors: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
+        self.objectness_logits = nn.Conv2d(in_channels, num_anchors, 1)
+        self.anchor_deltas = nn.Conv2d(in_channels, num_anchors * 4, 1)
+
+    def forward(self, features: Sequence[torch.Tensor]):
+        logits, deltas = [], []
+        for f in features:
+            t = F.relu(self.conv(f))
+            logits.append(self.objectness_logits(t))
+            deltas.append(self.anchor_deltas(t))
+        return logits, deltas
+
+
+def select_proposals(level_logits: Sequence[torch.Tensor],
+                     level_deltas: Sequence[torch.Tensor],
+                     level_anchors: Sequence[torch.Tensor], *,
+                     image_height: int, image_width: int, pre_nms_topk: int,
+                     post_nms_topk: int, nms_thresh: float, min_size: float,
+                     bbox_reg_weights=(1.0, 1.0, 1.0, 1.0)
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched `select_proposals_single`.  Per level: logits (B, n),
+    deltas (B, n, 4) in (y, x, anchor) order, anchors (n, 4).
+    Returns boxes (B, K, 4), scores (B, K), valid (B, K), K = post_nms_topk.
+    """
+    all_boxes, all_scores, all_valid = [], [], []
+    for scores, deltas, anchors in zip(level_logits, level_deltas, level_anchors):
+        k = min(pre_nms_topk, anchors.shape[0])
+        top_scores, idx = top_k(scores.to(torch.float32), k)
+        d = torch.gather(deltas.to(torch.float32), 1, idx[..., None].expand(-1, -1, 4))
+        boxes = clip_boxes(decode_deltas(d, anchors[idx], bbox_reg_weights),
+                           image_height, image_width)
+        valid = nonempty(boxes, min_size) & torch.isfinite(boxes).all(dim=-1)
+        all_boxes.append(boxes)
+        all_scores.append(top_scores)
+        all_valid.append(nms_mask(boxes, top_scores, valid, nms_thresh))
+    boxes = torch.cat(all_boxes, dim=1)
+    scores = torch.cat(all_scores, dim=1)
+    idx, out_valid = select_top(scores, torch.cat(all_valid, dim=1), post_nms_topk)
+    top_scores = torch.gather(scores, 1, idx)
+    return (torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
+            torch.where(out_valid, top_scores, torch.full_like(top_scores, NEG_INF)),
+            out_valid)
+
+
+class RPN(nn.Module):
+    """RPN over the FPN levels (d2 key prefix `proposal_generator`)."""
+
+    def __init__(self, cfg: RPNConfig = RPNConfig(),
+                 anchor_cfg: AnchorConfig = AnchorConfig(), in_channels: int = 256):
+        super().__init__()
+        if cfg.head_convs != 1:
+            raise NotImplementedError("the DRPN head (head_convs > 1) is not ported")
+        self.cfg = cfg
+        self.anchor_cfg = anchor_cfg
+        self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios))
+
+    def anchors(self, shapes: Sequence[Tuple[int, int]], device) -> List[torch.Tensor]:
+        return [torch.from_numpy(anchors_for_level(
+            h, w, FPN_STRIDES[name], self.anchor_cfg.sizes[i][0],
+            self.anchor_cfg.aspect_ratios, self.anchor_cfg.offset)).to(device)
+            for i, (name, (h, w)) in enumerate(zip(self.cfg.in_features, shapes))]
+
+    def forward(self, features: Dict[str, torch.Tensor], *, image_height: int,
+                image_width: int) -> Dict[str, torch.Tensor]:
+        """features: {p2..p6} NCHW -> proposals dict(boxes (B, K, 4),
+        scores (B, K), valid (B, K)) for inference."""
+        feats = [features[f] for f in self.cfg.in_features]
+        logits, deltas = self.rpn_head(feats)
+        b = feats[0].shape[0]
+        # (B, A, H, W) -> (B, H*W*A) and (B, A*4, H, W) -> (B, H*W*A, 4):
+        # the (y, x, anchor) order of the anchors
+        logits = [lg.permute(0, 2, 3, 1).reshape(b, -1) for lg in logits]
+        deltas = [dl.permute(0, 2, 3, 1).reshape(b, -1, 4) for dl in deltas]
+        anchors = self.anchors([f.shape[2:] for f in feats], feats[0].device)
+        boxes, scores, valid = select_proposals(
+            logits, deltas, anchors, image_height=image_height,
+            image_width=image_width, pre_nms_topk=self.cfg.pre_nms_topk_test,
+            post_nms_topk=self.cfg.post_nms_topk_test,
+            nms_thresh=self.cfg.nms_thresh, min_size=self.cfg.min_size,
+            bbox_reg_weights=self.cfg.bbox_reg_weights)
+        return {"boxes": boxes, "scores": scores, "valid": valid}

@@ -1,0 +1,95 @@
+"""The port stands alone: no JAX, no JAX package, and no silent CPU fallback.
+
+  * a fresh interpreter imports every module of `articulation3d_tpu_torch`
+    and `chip_smoke.py` and finds neither `jax`, `flax` nor
+    `articulation3d_tpu` in `sys.modules`;
+  * no import statement in the port or in `chip_smoke.py` names them;
+  * entry points called without a device run on the card, and raise where
+    there is none;
+  * the CLI runs end to end on the CPU when asked to, and refuses
+    `--save-obj`.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "articulation3d_tpu_torch"
+
+_IMPORT_ALL = r"""
+import importlib, importlib.util, pkgutil, sys
+import articulation3d_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "articulation3d_tpu"))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_importing_the_port_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=str(ROOT), env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout, out.stdout
+
+
+def test_no_import_statement_names_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|articulation3d_tpu)(\.|\s|$)",
+                     re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_entry_points_default_to_the_card():
+    from articulation3d_tpu_torch.config import Config
+    from articulation3d_tpu_torch.models.planercnn import build_model
+    from articulation3d_tpu_torch.structures import resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        build_model(Config())
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cli_runs_on_cpu_and_refuses_save_obj(tmp_path):
+    import cv2
+
+    from articulation3d_tpu_torch import infer
+
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text(
+        "model:\n  dtype: float32\n"
+        "  rpn: {pre_nms_topk_test: 16, post_nms_topk_test: 16}\n"
+        "  roi_heads: {detections_per_image: 4, score_thresh_test: 0.0}\n"
+        "  depth_head: {output_height: 64, output_width: 96}\n"
+        "input: {height: 64, width: 96}\nweights: ''\n")
+    img = np.random.RandomState(0).randint(0, 255, (64, 96, 3)).astype(np.uint8)
+    cv2.imwrite(str(tmp_path / "frame.png"), img)
+    args = ["--config", str(cfg), "--input", str(tmp_path / "frame.png"),
+            "--output", str(tmp_path / "out"), "--conf-threshold", "0.0"]
+    with pytest.raises(SystemExit):
+        infer.main(args + ["--save-obj"])
+    infer.main(args + ["--device", "cpu", "--batch-size", "2"])
+    with np.load(tmp_path / "out" / "predictions.npz") as z:
+        assert z["counts"].tolist() == [4]
+        assert z["boxes"].shape == (4, 4) and np.isfinite(z["boxes"]).all()
+        masks = np.unpackbits(z["masks_packed"], axis=-1, count=int(z["width"]))
+        assert masks.shape == (4, 64, 96)
