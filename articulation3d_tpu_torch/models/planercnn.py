@@ -1,7 +1,7 @@
-"""PlaneRCNN meta-architecture, eval-mode forward.
+"""PlaneRCNN meta-architecture: eval-mode and training forwards.
 
 Counterpart of `articulation3d_tpu/models/planercnn.py` (`features`,
-`_pool`, `inference`, `inference_probe`):
+`_pool`, `inference`, `inference_probe`, `train_forward`):
 
     R50 -> FPN -> RPN -> box pool + box head + class-wise NMS ->
       cascade on the final boxes: mask -> plane -> axis    -> depth head
@@ -15,21 +15,24 @@ plane_head,axis_head}`, `depth_head`), so a d2 state dict loads with
 
 The trunk and heads run NCHW in `model.dtype` (bfloat16 through autocast,
 weights float32); features, ROI outputs and depth are float32.  The ROI
-poolers take the p2..p5 maps channels-last, permuted once per forward.
-The refine head and the training forward are not ported yet.
+poolers take the p2..p5 maps channels-last, permuted once per forward;
+inference pools them in the compute dtype with the kernel, training pools
+float32 maps through `multilevel_roi_align_train` (K1 forward, K2
+backward).  The refine head is not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..config import Config
 from ..ops.roi_align import multilevel_roi_align
-from ..ops.roi_align_cuda import multilevel_roi_align_cuda
+from ..ops.roi_align_cuda import (multilevel_roi_align_cuda,
+                                 multilevel_roi_align_train)
 from ..structures import Detections, resolve_device
 from .depth_head import DepthHead
 from .fpn import FPN
@@ -95,23 +98,33 @@ class PlaneRCNN(nn.Module):
             raise ValueError(f"unknown roi_pooler_impl {impl!r}")
         return impl
 
-    def roi_features(self, features: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    def roi_features(self, features: Dict[str, torch.Tensor],
+                     training: bool = False) -> List[torch.Tensor]:
         """p2..p5 permuted once to channels-last (B, H, W, C), in the dtype
-        the configured pooler reads (the compute dtype for the kernel,
-        float32 for the gather formulation, as in the JAX package)."""
+        the configured pooler reads: for inference the compute dtype with
+        the kernel and float32 for the gather formulation; for training
+        always float32 (the JAX training pooler does not cast)."""
         feats = [features[f] for f in self.config.model.roi_heads.in_features]
-        dtype = (self.compute_dtype if self._pooler_impl(feats[0].device) == "cuda"
-                 else torch.float32)
+        dtype = (self.compute_dtype if not training
+                 and self._pooler_impl(feats[0].device) == "cuda" else torch.float32)
         return [f.permute(0, 2, 3, 1).contiguous().to(dtype) for f in feats]
 
     def _pool(self, roi_feats: List[torch.Tensor], boxes: torch.Tensor, *,
               resolution: int, sampling_ratio: int, aligned: bool,
-              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+              valid: Optional[torch.Tensor] = None,
+              training: bool = False) -> torch.Tensor:
         """Multilevel ROIAlign over the batch: (B, N, 4) -> (B, N, P, P, C).
-        With the kernel, invalid ROIs pool to zeros at no cost."""
+        With the kernel, invalid ROIs pool to zeros at no cost.  `training`
+        pools through `multilevel_roi_align_train` with the boxes detached:
+        no gradient reaches ROI coordinates (d2 creates proposals under
+        no_grad; JAX planercnn.py:97-108)."""
         kw = dict(strides=ROI_STRIDES, output_size=resolution,
                   sampling_ratio=sampling_ratio, aligned=aligned)
-        if self._pooler_impl(boxes.device) == "cuda":
+        impl = self._pooler_impl(boxes.device)
+        if training:
+            return multilevel_roi_align_train(roi_feats, boxes.detach(), valid=valid,
+                                              impl=impl, **kw)
+        if impl == "cuda":
             return multilevel_roi_align_cuda(roi_feats, boxes, valid=valid, **kw)
         return torch.stack([
             multilevel_roi_align([f[i] for f in roi_feats], boxes[i], chunk=32, **kw)
@@ -226,6 +239,73 @@ class PlaneRCNN(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         return self.inference(images)
+
+    # ------------------------------------------------------------------ #
+    def train_forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_classes: torch.Tensor, gt_valid: torch.Tensor,
+                      generators: Sequence[torch.Generator]):
+        """Training forward: trunk -> RPN -> proposal sampling -> heads.
+
+        images: preprocessed (B, H, W, 3); gt_* padded (B, G, ...);
+        generators: one per image (`train.targets.per_image_keys`).
+        Returns (outputs for `train.targets.detection_losses` and
+        `rpn_losses`, SampledROIs).  Frozen heads are not run; with
+        "backbone" frozen the features are detached, so no gradient reaches
+        the poolers' features and the adjoint never runs (JAX 347-356).
+        """
+        from ..train.targets import sample_rois  # local: avoids an import cycle
+
+        cfg = self.config
+        mcfg = cfg.model
+        h, w = cfg.input.height, cfg.input.width
+        ac = lambda: self._autocast(images.device)
+        feats = self.features(images)
+        if "backbone" in mcfg.freeze:
+            feats = {k: v.detach() for k, v in feats.items()}
+        with ac():
+            proposals, rpn_raw = self.proposal_generator(
+                feats, image_height=h, image_width=w, training=True)
+        rois = sample_rois(proposals["boxes"], proposals["valid"], gt_boxes,
+                           gt_classes, gt_valid, generators, cfg)
+        roi_boxes = rois.boxes.detach()
+        roi_feats = self.roi_features(feats, training=True)
+        b, s = roi_boxes.shape[:2]
+        pool = lambda hcfg, aligned: self._pool(
+            roi_feats, roi_boxes, resolution=hcfg.pooler_resolution,
+            sampling_ratio=hcfg.pooler_sampling_ratio, aligned=aligned,
+            valid=rois.is_sampled, training=True)
+
+        pooled = pool(mcfg.box_head, True)
+        with ac():
+            x = self.roi_heads.box_head(pooled.reshape(b * s, *pooled.shape[2:]))
+        scores, deltas = self.roi_heads.box_predictor(x)
+        outputs: Dict[str, Any] = {
+            "proposals": proposals, "rpn_raw": rpn_raw,
+            "box_scores": scores.reshape(b, s, -1),
+            "box_deltas": deltas.reshape(b, s, -1),
+        }
+        trains = lambda name: name not in mcfg.freeze
+        if mcfg.mask_on and trains("roi_heads.mask_head"):
+            mp = pool(mcfg.mask_head, False)
+            with ac():
+                logits = self.roi_heads.mask_head(mp.reshape(b * s, *mp.shape[2:]))
+            outputs["mask_logits"] = logits.reshape(b, s, *logits.shape[1:])
+        plane = mcfg.plane_on and trains("roi_heads.plane_head")
+        axis = mcfg.axis_on and trains("roi_heads.axis_head")
+        if plane or axis:
+            pp = pool(mcfg.plane_head, False)
+            flat = pp.reshape(b * s, *pp.shape[2:])
+            with ac():
+                if plane:
+                    outputs["plane_pred"] = self.roi_heads.plane_head(flat).reshape(b, s, -1)
+                if axis:
+                    rot, tran = self.roi_heads.axis_head(flat)
+                    outputs["rot_pred"] = rot.reshape(b, s, -1)
+                    outputs["tran_pred"] = tran.reshape(b, s, -1)
+        if mcfg.depth_on and trains("depth_head"):
+            with ac():
+                outputs["depth_pred"] = self.depth_head(feats, train=True).to(torch.float32)
+        return outputs, rois
 
 
 def build_model(config: Config, device=None,

@@ -114,9 +114,16 @@ class RPN(nn.Module):
             for i, (name, (h, w)) in enumerate(zip(self.cfg.in_features, shapes))]
 
     def forward(self, features: Dict[str, torch.Tensor], *, image_height: int,
-                image_width: int) -> Dict[str, torch.Tensor]:
+                image_width: int, training: bool = False):
         """features: {p2..p6} NCHW -> proposals dict(boxes (B, K, 4),
-        scores (B, K), valid (B, K)) for inference."""
+        scores (B, K), valid (B, K)), made without gradient.
+
+        Inference returns the proposals alone.  `training=True` selects
+        with the train top-k (`pre_nms_topk_train`, `post_nms_topk_train`)
+        and returns (proposals, raw) with raw = dict(logits [(B, n_l)],
+        deltas [(B, n_l, 4)], anchors [(n_l, 4)]) per level in (y, x,
+        anchor) order, the outputs `train.targets.rpn_losses` reads.
+        """
         feats = [features[f] for f in self.cfg.in_features]
         logits, deltas = self.rpn_head(feats)
         b = feats[0].shape[0]
@@ -125,10 +132,16 @@ class RPN(nn.Module):
         logits = [lg.permute(0, 2, 3, 1).reshape(b, -1) for lg in logits]
         deltas = [dl.permute(0, 2, 3, 1).reshape(b, -1, 4) for dl in deltas]
         anchors = self.anchors([f.shape[2:] for f in feats], feats[0].device)
-        boxes, scores, valid = select_proposals(
-            logits, deltas, anchors, image_height=image_height,
-            image_width=image_width, pre_nms_topk=self.cfg.pre_nms_topk_test,
-            post_nms_topk=self.cfg.post_nms_topk_test,
-            nms_thresh=self.cfg.nms_thresh, min_size=self.cfg.min_size,
-            bbox_reg_weights=self.cfg.bbox_reg_weights)
-        return {"boxes": boxes, "scores": scores, "valid": valid}
+        cfg = self.cfg
+        with torch.no_grad():
+            boxes, scores, valid = select_proposals(
+                [lg.detach() for lg in logits], [dl.detach() for dl in deltas],
+                anchors, image_height=image_height, image_width=image_width,
+                pre_nms_topk=cfg.pre_nms_topk_train if training else cfg.pre_nms_topk_test,
+                post_nms_topk=cfg.post_nms_topk_train if training else cfg.post_nms_topk_test,
+                nms_thresh=cfg.nms_thresh, min_size=cfg.min_size,
+                bbox_reg_weights=cfg.bbox_reg_weights)
+        proposals = {"boxes": boxes, "scores": scores, "valid": valid}
+        if not training:
+            return proposals
+        return proposals, {"logits": logits, "deltas": deltas, "anchors": anchors}

@@ -1,4 +1,5 @@
-"""Box geometry: IoU, Box2BoxTransform decode, clipping, emptiness.
+"""Box geometry: IoU, Box2BoxTransform encode and decode, clipping,
+emptiness, smooth L1.
 
 Counterpart of `articulation3d_tpu/ops/box_ops.py` (detectron2 semantics:
 box-head weights (10, 10, 5, 5), RPN weights (1, 1, 1, 1), dw/dh clamped at
@@ -68,3 +69,33 @@ def clip_boxes(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor
 def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     return (((boxes[..., 2] - boxes[..., 0]) > threshold)
             & ((boxes[..., 3] - boxes[..., 1]) > threshold))
+
+
+def encode_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor,
+                  weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Box2BoxTransform.get_deltas: regression targets src -> target."""
+    src_w = src_boxes[..., 2] - src_boxes[..., 0]
+    src_h = src_boxes[..., 3] - src_boxes[..., 1]
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+    tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+    tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    wx, wy, ww, wh = weights
+    eps = 1e-12
+    dx = wx * (tgt_cx - src_cx) / src_w.clamp(min=eps)
+    dy = wy * (tgt_cy - src_cy) / src_h.clamp(min=eps)
+    dw = ww * torch.log(tgt_w.clamp(min=eps) / src_w.clamp(min=eps))
+    dh = wh * torch.log(tgt_h.clamp(min=eps) / src_h.clamp(min=eps))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Tensor:
+    """fvcore smooth_l1, elementwise: plain L1 when beta is 0 (the
+    reference's setting)."""
+    diff = (pred - target).abs()
+    if beta <= 0.0:
+        return diff
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)

@@ -1,4 +1,5 @@
-"""Multilevel ROIAlign forward as a hand-written CUDA kernel for Hopper.
+"""Multilevel ROIAlign forward and its adjoint as hand-written CUDA kernels
+for Hopper, and the training pooler built from the two.
 
 Counterpart of `articulation3d_tpu/ops/roi_align_pallas.py`.  It holds:
 
@@ -10,11 +11,19 @@ Counterpart of `articulation3d_tpu/ops/roi_align_pallas.py`.  It holds:
     per-ROI separable weights Ry (P, 64) and Rx (P, 80) that fold in V1/V2
     offsets, the adaptive sample count capped at 4, bilinear corners, zeros
     outside the map, the defensive edge clamp and 1/n averaging;
-  * the kernel wrapper `multilevel_roi_align_cuda`, which launches
-    `csrc/roi_align_fwd.cu` for CUDA tensors;
-  * the plain version `multilevel_roi_align_separable`, the same math in
-    torch ops, which the wrapper takes for CPU tensors and the tests and
-    `chip_smoke.py` hold the kernel against.
+  * K1, the forward: the wrapper `multilevel_roi_align_cuda`, which
+    launches `csrc/roi_align_fwd.cu` for CUDA tensors, and its plain
+    version `multilevel_roi_align_separable`;
+  * K2, the adjoint with respect to the features: the wrapper
+    `multilevel_roi_align_adjoint_cuda`, which launches
+    `csrc/roi_align_adj.cu`, and its plain version
+    `multilevel_roi_align_adjoint_separable`;
+  * K3, `multilevel_roi_align_train`: a `torch.autograd.Function` whose
+    forward is K1 and whose backward is K2 (the JAX `_train_pool`
+    custom VJP), or the gather formulation under torch autograd.
+
+Each wrapper takes its plain version for CPU tensors only; the tests and
+`chip_smoke.py` hold the kernels against the plain versions.
 
 The 64x80 window and the 8-aligned x origin are kept in the prologue though
 the CUDA kernel does no DMA: they decide which level and which weights an
@@ -36,11 +45,11 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .roi_align import _sample_coords, assign_boxes_to_levels
+from .roi_align import _sample_coords, assign_boxes_to_levels, multilevel_roi_align
 
 TILE_Y = 32   # window rows per tile
 TILE_X = 40   # window cols per tile
@@ -49,8 +58,8 @@ SPAN_Y = TILE_Y * N_TILES
 SPAN_X = TILE_X * N_TILES
 MAX_P = 16    # output sizes the kernel's shared-memory arrays hold
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "roi_align_fwd.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -207,16 +216,22 @@ def multilevel_roi_align_separable(features: Sequence[torch.Tensor],
     stay float32 for bf16 features; the sum is float32.
     """
     bsz, n = boxes.shape[:2]
-    c = features[0].shape[-1]
-    p = output_size
     pr = _prepare([f.shape for f in features], boxes, strides=strides,
-                  output_size=p, sampling_ratio=sampling_ratio,
+                  output_size=output_size, sampling_ratio=sampling_ratio,
                   aligned=aligned, min_level=min_level, valid=valid)
-    dev = boxes.device
+    out = _separable_forward(features, pr, output_size, chunk)
+    return out.reshape(bsz, n, output_size, output_size, -1)
+
+
+def _separable_forward(features: Sequence[torch.Tensor], pr: dict, p: int,
+                       chunk: int = 256) -> torch.Tensor:
+    """The plain forward from a `_prepare` result: (T, P, P, C) float32."""
+    c = features[0].shape[-1]
+    dev = pr["ry"].device
     ry, rx = _predicated_weights(pr)
     levels = pr["levels"].long()
     bids, y0, x0 = pr["batch_ids"].long(), pr["y0"].long(), pr["x0"].long()
-    out = torch.zeros((bsz * n, p, p, c), dtype=torch.float32, device=dev)
+    out = torch.zeros((levels.numel(), p, p, c), dtype=torch.float32, device=dev)
     wy = torch.arange(SPAN_Y, device=dev)
     wx = torch.arange(SPAN_X, device=dev)
     for lvl, f in enumerate(features):
@@ -229,7 +244,51 @@ def multilevel_roi_align_separable(features: Sequence[torch.Tensor],
             cols = (x0[r, None] + wx)[:, None, :]
             win = padded[bids[r, None, None], rows, cols].to(torch.float32)
             out[r] = torch.einsum("kpy,kyxc,kqx->kpqc", ry[r], win, rx[r])
-    return out.reshape(bsz, n, p, p, c)
+    return out
+
+
+def multilevel_roi_align_adjoint_separable(g: torch.Tensor,
+                                           feat_shapes: Sequence[Sequence[int]],
+                                           pr: dict,
+                                           chunk: int = 128) -> List[torch.Tensor]:
+    """The plain torch version of K2 (port of the CPU emulation
+    `tests/test_roi_train_pool.py::_emulate_pallas_adjoint`).
+
+    g: (T, P, P, C) or (B, N, P, P, C) pooled cotangent; feat_shapes: per
+    level (B, H_l, W_l, C); pr: the `_prepare` result of the forward.  Per
+    ROI the window cotangent dwin[y, x, c] = sum_p sum_q Ry[p, y] Rx[q, x]
+    g[p, q, c] (tiles beyond nty/ntx dropped, invalid ROIs skipped) is added
+    into the zero-padded level map at (y0, x0); each map is cropped to its
+    real extent (roi_align_pallas.py:727-731).  Returns float32 (B, H_l,
+    W_l, C) gradients.
+    """
+    p = g.shape[-2]
+    c = g.shape[-1]
+    gf = g.reshape(-1, p, p, c).to(torch.float32)
+    dev = gf.device
+    ry, rx = _predicated_weights(pr)
+    levels = pr["levels"].long()
+    bids, y0, x0 = pr["batch_ids"].long(), pr["y0"].long(), pr["x0"].long()
+    wy = torch.arange(SPAN_Y, device=dev)
+    wx = torch.arange(SPAN_X, device=dev)
+    grads = []
+    for lvl, shape in enumerate(feat_shapes):
+        bsz, h, w = (int(v) for v in shape[:3])
+        hp, wp = pr["hp"][lvl], pr["wp"][lvl]
+        acc = torch.zeros((bsz * hp * wp, c), dtype=torch.float32, device=dev)
+        sel = torch.nonzero((levels == lvl) & (pr["nty"] > 0)).flatten()
+        for lo in range(0, sel.numel(), chunk):
+            r = sel[lo:lo + chunk]
+            # transpose of the forward's products, Rx first as in the kernel
+            t = torch.einsum("kpqc,kqx->kpxc", gf[r], rx[r])
+            dwin = torch.einsum("kpy,kpxc->kyxc", ry[r], t)
+            cell = ((bids[r, None, None] * hp + y0[r, None, None] + wy[:, None]) * wp
+                    + x0[r, None, None] + wx)
+            # index_add_ sums in index order on the CPU (index_put_'s
+            # accumulate may not), so the plain version is deterministic there
+            acc.index_add_(0, cell.reshape(-1), dwin.reshape(-1, c))
+        grads.append(acc.reshape(bsz, hp, wp, c)[:, :h, :w].contiguous())
+    return grads
 
 
 def _predicated_weights(pr: dict):
@@ -245,10 +304,11 @@ def _predicated_weights(pr: dict):
 
 
 # --------------------------------------------------------------------------- #
-# the kernel: build, bind, launch
+# the kernels: build, bind, launch
 # --------------------------------------------------------------------------- #
 
-_lib = None
+_SOURCES = {"roi_align_fwd": "roi_align_fwd.cu", "roi_align_adj": "roi_align_adj.cu"}
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -261,64 +321,135 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build_kernel(verbose: bool = False) -> str:
-    """Compile `csrc/roi_align_fwd.cu` into `_build/` (once per source
-    version) and return the shared library's path."""
-    with open(_SRC, "rb") as f:
+def _lib_path(name: str) -> Tuple[str, str]:
+    """(source, shared library) of one kernel; the library's name carries
+    a digest of the source and the flags."""
+    src = os.path.join(_CSRC, _SOURCES[name])
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
+    return src, os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_kernels(names: Sequence[str] = tuple(_SOURCES),
+                  verbose: bool = False) -> Dict[str, str]:
+    """Compile each kernel source into `_build/` (once per source version),
+    one `nvcc` per source, all started together.  Returns {name: path}."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    path = os.path.join(_BUILD_DIR, f"libroi_align_fwd_{digest}.so")
-    if os.path.exists(path):
-        return path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, flush=True)
-    os.replace(tmp, path)
-    return path
+    jobs = {}
+    for name in names:
+        src, path = _lib_path(name)
+        if os.path.exists(path):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *_NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
+            + ["-o", tmp, src]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True), tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(f"[build] {name}\n{err}", flush=True)
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _lib_path(name)[1] for name in names}
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_kernel())
-        fn = lib.roi_align_fwd
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i,              # f2..f5, dtype
-                       i, i, i, i, i, i, i, i,          # h2, w2 .. h5, w5
-                       i, i,                            # C, P
-                       vp, vp, vp, vp, vp, vp,          # level bid y0 x0 nty ntx
-                       vp, vp, vp, i, vp]               # ry rx out T stream
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "roi_align_fwd": [_VP, _VP, _VP, _VP, _I,             # f2..f5, dtype
+                      _I, _I, _I, _I, _I, _I, _I, _I,     # h2, w2 .. h5, w5
+                      _I, _I,                             # C, P
+                      _VP, _VP, _VP, _VP, _VP, _VP,       # level bid y0 x0 nty ntx
+                      _VP, _VP, _VP, _I, _VP],            # ry rx out T stream
+    "roi_align_adj": [_VP, _VP, _VP, _VP,                 # d2..d5 (float32)
+                      _I, _I, _I, _I, _I, _I, _I, _I,     # h2, w2 .. h5, w5
+                      _I, _I,                             # C, P
+                      _VP, _VP, _VP, _VP, _VP, _VP,       # level bid y0 x0 nty ntx
+                      _VP, _VP, _VP, _I, _VP],            # ry rx g T stream
+}
+
+
+def _load(name: str = "roi_align_fwd"):
+    if name not in _libs:
+        lib = ctypes.CDLL(build_kernels((name,))[name])
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PR_KEYS = ("levels", "batch_ids", "y0", "x0", "nty", "ntx", "ry", "rx")
+
+
+def _hw(shapes: Sequence[Sequence[int]]) -> List[int]:
+    hw = []
+    for s in shapes:
+        hw += [int(s[1]), int(s[2])]
+    return hw
 
 
 def _launch(features: Sequence[torch.Tensor], pr: dict, out: torch.Tensor,
             p: int) -> None:
-    lib = _load()
-    hw = []
-    for f in features:
-        hw += [int(f.shape[1]), int(f.shape[2])]
+    lib = _load("roi_align_fwd")
     total = int(pr["levels"].numel())
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.roi_align_fwd(
-        *[f.data_ptr() for f in features], _DTYPES[features[0].dtype], *hw,
-        int(features[0].shape[-1]), p,
-        *[pr[k].data_ptr() for k in ("levels", "batch_ids", "y0", "x0",
-                                     "nty", "ntx", "ry", "rx")],
-        out.data_ptr(), total, stream)
+        *[f.data_ptr() for f in features], _DTYPES[features[0].dtype],
+        *_hw([f.shape for f in features]), int(features[0].shape[-1]), p,
+        *[pr[k].data_ptr() for k in _PR_KEYS], out.data_ptr(), total, stream)
     if err != 0:
         raise RuntimeError(f"roi_align_fwd launch failed: CUDA error {err}")
+
+
+def _launch_adj(g: torch.Tensor, pr: dict, grads: Sequence[torch.Tensor]) -> None:
+    lib = _load("roi_align_adj")
+    total = int(pr["levels"].numel())
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.roi_align_adj(
+        *[d.data_ptr() for d in grads], *_hw([d.shape for d in grads]),
+        int(g.shape[-1]), int(g.shape[-2]),
+        *[pr[k].data_ptr() for k in _PR_KEYS], g.data_ptr(), total, stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align_adj launch failed: CUDA error {err}")
+
+
+def _check_features(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                    output_size: int) -> None:
+    if len(features) != 4:
+        raise ValueError("the kernel pools exactly four levels (p2..p5)")
+    dtype = features[0].dtype
+    if dtype not in _DTYPES or any(f.dtype != dtype for f in features):
+        raise TypeError(f"features must all be float32 or bfloat16, got "
+                        f"{[f.dtype for f in features]}")
+    c = features[0].shape[-1]
+    for f in features:
+        if (f.device != boxes.device or f.dim() != 4 or f.shape[-1] != c
+                or f.shape[0] != boxes.shape[0] or not f.is_contiguous()):
+            raise ValueError("features must be contiguous (B, H, W, C) "
+                             "tensors on the boxes' device")
+    if not 1 <= output_size <= MAX_P:
+        raise ValueError(f"output_size must be in [1, {MAX_P}]")
+
+
+def _forward_kernel(features: Sequence[torch.Tensor], pr: dict,
+                    p: int) -> torch.Tensor:
+    """K1 on a `_prepare` result: (T, P, P, C) float32; counts the launch."""
+    total = int(pr["levels"].numel())
+    out = torch.empty((total, p, p, features[0].shape[-1]), dtype=torch.float32,
+                      device=features[0].device)
+    if total:
+        _launch(features, pr, out, p)
+        multilevel_roi_align_cuda.launches += 1
+    return out
 
 
 def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
@@ -340,28 +471,123 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
         return multilevel_roi_align_separable(features, boxes, **kw)
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
-    if len(features) != 4:
-        raise ValueError("the kernel pools exactly four levels (p2..p5)")
-    dtype = features[0].dtype
-    if dtype not in _DTYPES or any(f.dtype != dtype for f in features):
-        raise TypeError(f"features must all be float32 or bfloat16, got "
-                        f"{[f.dtype for f in features]}")
-    c = features[0].shape[-1]
-    for f in features:
-        if (f.device != boxes.device or f.dim() != 4 or f.shape[-1] != c
-                or f.shape[0] != boxes.shape[0] or not f.is_contiguous()):
-            raise ValueError("features must be contiguous (B, H, W, C) "
-                             "tensors on the boxes' device")
-    if not 1 <= output_size <= MAX_P:
-        raise ValueError(f"output_size must be in [1, {MAX_P}]")
+    _check_features(features, boxes, output_size)
     bsz, n = boxes.shape[:2]
     pr = _prepare([f.shape for f in features], boxes, **kw)
-    out = torch.empty((bsz * n, output_size, output_size, c),
-                      dtype=torch.float32, device=boxes.device)
-    if bsz * n:
-        _launch(features, pr, out, output_size)
-        multilevel_roi_align_cuda.launches += 1
-    return out.reshape(bsz, n, output_size, output_size, c)
+    out = _forward_kernel(features, pr, output_size)
+    return out.reshape(bsz, n, output_size, output_size, -1)
 
 
 multilevel_roi_align_cuda.launches = 0
+
+
+def multilevel_roi_align_adjoint_cuda(g: torch.Tensor,
+                                      feat_shapes: Sequence[Sequence[int]],
+                                      pr: dict) -> List[torch.Tensor]:
+    """K2: the gradient of K1 with respect to the features.
+
+    g: (T, P, P, C) or (B, N, P, P, C) float32 pooled cotangent;
+    feat_shapes: per level (B, H_l, W_l, C); pr: the forward's `_prepare`
+    result, used as it is (its Ry/Rx carry the window-edge snap, so the
+    pair stays an exact linear map and transpose).  Returns float32
+    (B, H_l, W_l, C) gradients.  CUDA tensors launch `csrc/roi_align_adj.cu`
+    (float32 atomics: the sum order varies between runs); CPU tensors take
+    `multilevel_roi_align_adjoint_separable`.
+    """
+    if g.device.type == "cpu":
+        return multilevel_roi_align_adjoint_separable(g, feat_shapes, pr)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    if len(feat_shapes) != 4:
+        raise ValueError("the kernel scatters into exactly four levels (p2..p5)")
+    p, c = int(g.shape[-2]), int(g.shape[-1])
+    if g.dtype != torch.float32 or not g.is_contiguous() or g.shape[-3] != p:
+        raise TypeError("g must be a contiguous float32 (..., P, P, C) tensor")
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"output_size must be in [1, {MAX_P}]")
+    total = int(pr["levels"].numel())
+    if g.numel() != total * p * p * c or any(int(s[-1]) != c for s in feat_shapes):
+        raise ValueError("g does not match the prologue's ROIs or the channels")
+    grads = [torch.zeros((int(s[0]), int(s[1]), int(s[2]), c), dtype=torch.float32,
+                         device=g.device) for s in feat_shapes]
+    if total:
+        _launch_adj(g, pr, grads)
+        multilevel_roi_align_adjoint_cuda.launches += 1
+    return grads
+
+
+multilevel_roi_align_adjoint_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# K3: the training pooler
+# --------------------------------------------------------------------------- #
+
+class _TrainPool(torch.autograd.Function):
+    """Forward K1 (plain version on the CPU), backward K2; the counterpart
+    of JAX `_train_pool` with `use_pallas=True`.  The prologue is saved for
+    the backward instead of being rebuilt (JAX rebuilds it, the same math).
+    Boxes get a zero cotangent and `valid` none (roi_align_pallas.py:837-843).
+    """
+
+    @staticmethod
+    def forward(ctx, boxes, valid, opts, *features):
+        with torch.autocast(boxes.device.type, enabled=False):
+            pr = _prepare([f.shape for f in features], boxes, valid=valid, **opts)
+            p = opts["output_size"]
+            if boxes.device.type == "cuda":
+                _check_features(features, boxes, p)
+                out = _forward_kernel(features, pr, p)
+            else:
+                out = _separable_forward(features, pr, p)
+        ctx.save_for_backward(boxes, valid, *[pr[k] for k in _PR_KEYS])
+        ctx.pads = (pr["hp"], pr["wp"])
+        ctx.shapes = [tuple(f.shape) for f in features]
+        ctx.dtypes = [f.dtype for f in features]
+        # invalid ROIs (nty = 0) pool to exact zeros in both versions
+        return out.reshape(*boxes.shape[:2], p, p, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        boxes, valid, *saved = ctx.saved_tensors
+        pr = dict(zip(_PR_KEYS, saved), hp=ctx.pads[0], wp=ctx.pads[1])
+        g = g.to(torch.float32)
+        if valid is not None:
+            g = torch.where(valid[..., None, None, None], g, torch.zeros_like(g))
+        dfeats = multilevel_roi_align_adjoint_cuda(g.contiguous(), ctx.shapes, pr)
+        return (torch.zeros_like(boxes), None, None,
+                *[d.to(t) for d, t in zip(dfeats, ctx.dtypes)])
+
+
+def multilevel_roi_align_train(features: Sequence[torch.Tensor],
+                               boxes: torch.Tensor, *,
+                               strides: Sequence[int], output_size: int,
+                               sampling_ratio: int, aligned: bool,
+                               impl: str, valid: Optional[torch.Tensor] = None,
+                               min_level: int = 2) -> torch.Tensor:
+    """Batched FPN ROIAlign for training (JAX `multilevel_roi_align_train`):
+    features (B, H_l, W_l, C) x 4, boxes (B, N, 4), valid (B, N) bool ->
+    (B, N, P, P, C) float32; invalid ROIs pool to zeros and send no
+    gradient to the features.
+
+    impl "cuda": `_TrainPool`, K1 forward and K2 backward (their plain
+    versions for CPU tensors); the boxes get a zero gradient.  impl
+    "torch": the gather formulation `ops/roi_align.py::multilevel_roi_align`
+    at detectron2's levels under torch autograd, the counterpart of JAX
+    `use_pallas=False`; the boxes are detached.  The model resolves its
+    "auto" setting before calling (`PlaneRCNN._pooler_impl`).
+    """
+    kw = dict(strides=tuple(strides), output_size=int(output_size),
+              sampling_ratio=int(sampling_ratio), aligned=bool(aligned),
+              min_level=int(min_level))
+    if impl == "cuda":
+        return _TrainPool.apply(boxes, valid, kw, *features)
+    if impl != "torch":
+        raise ValueError(f"unknown pooler impl {impl!r}")
+    boxes = boxes.detach()
+    out = torch.stack([multilevel_roi_align([f[i] for f in features], boxes[i],
+                                            chunk=32, **kw).to(torch.float32)
+                       for i in range(boxes.shape[0])])
+    if valid is not None:
+        out = torch.where(valid[..., None, None, None], out, torch.zeros_like(out))
+    return out

@@ -11,6 +11,7 @@ The port's parameter names ARE the d2 state-dict keys, so a released
   * `load_d2_state_dict` / `load_torch_state_dict`: loading with a check
     that only `num_batches_tracked`, anchor buffers and the pixel
     statistics may be missing or unexpected;
+  * `warm_start`: d2's shape-tolerant warm start for training stages;
   * `state_dict_from_jax`: the JAX package's parameters -> this schema, the
     inverse of its checkpoint porter (`train/checkpoint.py::_map_name`,
     `_convert`), kept here as the port's own copy.
@@ -169,6 +170,29 @@ def load_d2_state_dict(model: torch.nn.Module, state_dict: Mapping[str, Any]) ->
     bad = [k for k in list(missing) + list(unexpected) if not _ignorable(k)]
     if bad:
         raise KeyError(f"state dict does not match the model: {bad[:10]}")
+
+
+def warm_start(model: torch.nn.Module, state_dict: Mapping[str, Any]) -> Dict[str, list]:
+    """d2's warm start (`DetectionCheckpointer` without resume): keys the
+    model has with the same shape load; the model's other keys keep their
+    values (a head the checkpoint lacks); checkpoint keys the model lacks or
+    whose shape differs are skipped.  Returns the key lists."""
+    own = model.state_dict()
+    stats: Dict[str, list] = {"loaded": [], "missing": [], "unexpected": [],
+                              "shape_mismatch": []}
+    load = {}
+    for k, v in state_dict.items():
+        v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        if k not in own:
+            stats["unexpected"].append(k)
+        elif tuple(own[k].shape) != tuple(v.shape):
+            stats["shape_mismatch"].append(k)
+        else:
+            load[k] = v
+            stats["loaded"].append(k)
+    stats["missing"] = [k for k in own if k not in load]
+    model.load_state_dict(load, strict=False)
+    return stats
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:

@@ -8,12 +8,15 @@ Phases (each prints its own lines; any failure is an exception and a
 non-zero exit):
 
   1. device and build: the card's name and power limit, and the build of
-     the ROIAlign kernel (csrc/roi_align_fwd.cu) with its ptxas report;
-  2. the kernel against its plain torch version on the card, on a 480x640
+     both ROIAlign kernels (csrc/roi_align_fwd.cu, K1, and
+     csrc/roi_align_adj.cu, K2; one nvcc each, started together) with their
+     ptxas reports;
+  2. each kernel against its plain torch version on the card, on a 480x640
      pyramid (C = 256, B = 2) for the box (N = 1000, 7x7, V2, ratio 0),
      mask (N = 100, 14x14, V1, ratio 2) and plane (N = 100, 14x14, V1,
-     ratio 0) pools, in float32 and bfloat16, with invalid rows, plus the
-     5:1 and bumped-level 9:1 box sets;
+     ratio 0) pools, with invalid rows, plus the 5:1 and bumped-level 9:1
+     box sets: K1 in float32 and bfloat16, K2 in float32 with the transpose
+     identity <K1(F), G> = <F, K2(G)> summed in float64;
   3. the main path: `VideoPipeline` at full width (R50-FPN, 1000
      proposals, 100 detections, mask/plane/axis/depth heads, the shipped
      configs/config.yaml with seeded random weights and score threshold 0)
@@ -22,7 +25,17 @@ non-zero exit):
      time at the main path's own pool inputs beside its plain version and
      its bound;
   4. the kernel path against the plain gather path, whole model, float32;
-  5. a JSON line of kernel measurements, then the device JSON as the last
+  5. the training path: `Trainer` on the shipped configs/step1_bbox.yaml at
+     full width (R50-FPN, RPN 2000/1000, 512 ROIs per image, ims 16,
+     480x640, bf16 trunk) for 2 warm and 20 timed steps on one synthetic
+     batch, with K1 and K2 launches per step, the loss curve, peak memory
+     and a profile of one warm step; then K2's time at the path's own box
+     pool inputs beside its plain version and its bound;
+  6. training-path parity: one float32 step with the kernel pooler and one
+     with the gather pooler under autograd, losses and the p2 convs'
+     gradients compared; then the two poolers' gradients to p2..p5 on the
+     kernel run's own features, boxes and cotangent;
+  7. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
 Exits non-zero without a result when there is no CUDA device or the
@@ -31,6 +44,7 @@ package is not beside this script.  TF32 is off for every phase.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -137,6 +151,47 @@ def phase_kernel_parity(rac):
             assert zero_ok, (name, dtype)
 
 
+def phase_adjoint_parity(rac):
+    """K2 vs its plain version within 1e-4 x max|plain| (float32 atomics
+    add in a varying order), and the transpose identity <K1(F), G> =
+    <F, K2(G)> in float64 within 1e-5 relative."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rs = np.random.RandomState(1)
+    feats2 = _pyramid(gen, 2, torch.float32)
+    cases = []
+    for name, (p, sr, aligned) in POOLS.items():
+        n = 1000 if name == "box" else 100
+        boxes = torch.from_numpy(_random_boxes(rs, 2, n)).cuda()
+        valid = torch.from_numpy(rs.rand(2, n) > 0.2).cuda()
+        cases.append((name, feats2, boxes, valid, p, sr, aligned))
+    for name, bx in _adversarial_boxes().items():
+        cases.append((name, [f[:1].contiguous() for f in feats2],
+                      torch.from_numpy(bx).cuda(), None, 7, 0, True))
+    for name, feats, boxes, valid, p, sr, aligned in cases:
+        shapes = [f.shape for f in feats]
+        pr = rac._prepare(shapes, boxes, strides=STRIDES, output_size=p,
+                          sampling_ratio=sr, aligned=aligned, valid=valid)
+        g = torch.randn((boxes.shape[0] * boxes.shape[1], p, p, 256), generator=gen,
+                        device="cuda")
+        got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr)
+        want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
+        fwd = rac.multilevel_roi_align_cuda(feats, boxes, strides=STRIDES, output_size=p,
+                                            sampling_ratio=sr, aligned=aligned, valid=valid)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        lhs = float((fwd.double() * g.reshape(fwd.shape).double()).sum())
+        rhs = float(sum((f.double() * d.double()).sum() for f, d in zip(feats, got)))
+        rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
+        _log(f"[adjoint-parity] {name:22s} float32  P={p:2d} sr={sr} aligned={int(aligned)} "
+             f"rois={boxes.shape[0] * boxes.shape[1]:5d} max_abs_err={err:.3e} "
+             f"max|plain|={scale:.3e} tol={1e-4 * scale:.3e}; transpose identity "
+             f"<K1(F),G>={lhs:.9e} <F,K2(G)>={rhs:.9e} rel_err={rel:.3e} (tol 1e-5)")
+        assert np.isfinite(err) and err <= 1e-4 * scale, (name, err)
+        assert rel <= 1e-5, (name, rel)
+
+
 def _match(ref_boxes, out_boxes, iou_thresh=0.7):
     """Greedy IoU matching in ref order -> (ref_idx, out_idx)."""
     if len(ref_boxes) == 0 or len(out_boxes) == 0:
@@ -205,8 +260,6 @@ def main() -> int:
               "not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import dataclasses
-
     from articulation3d_tpu_torch.config import load_config
     from articulation3d_tpu_torch.models.planercnn import build_model
     from articulation3d_tpu_torch.ops import roi_align_cuda as rac
@@ -224,11 +277,13 @@ def main() -> int:
     _log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    lib = rac.build_kernel(verbose=True)
-    _log(f"[build] {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.1f}s")
+    libs = rac.build_kernels(verbose=True)
+    _log(f"[build] {[os.path.relpath(v, ROOT) for v in libs.values()]} in "
+         f"{time.perf_counter() - t0:.1f}s")
 
-    # 2. kernel vs plain version -----------------------------------------
+    # 2. kernels vs plain versions ---------------------------------------
     phase_kernel_parity(rac)
+    phase_adjoint_parity(rac)
 
     # 3. main path -------------------------------------------------------
     cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
@@ -364,28 +419,386 @@ def main() -> int:
     assert box_err < 2.0, box_err
     assert all(v < 0.75 for v in head_err.values()), head_err
 
-    # 5. results ---------------------------------------------------------
+    k1_inference = launches
+    del model, model32, pipe
+    torch.cuda.empty_cache()
+
+    # 5. training path ----------------------------------------------------
+    train = phase_training(rac, card)
+
+    # 6. training path parity, float32 -------------------------------------
+    phase_training_parity(rac, train)
+
+    # 7. results ---------------------------------------------------------
     max_err = _main_path_err(rac, captured)
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_fwd.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:184",
-        "launches": launches,
+        "launches": k1_inference + train["k1"],
+        "launches_by_path": {"inference": k1_inference, "training": train["k1"]},
         "max_abs_err": max_err,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
         "library_ms": None,
+        # ms, plain_ms and bound_ms above are the serving pools'; the
+        # training box pool's, at its own inputs:
+        "training_box_pool": train["k1_train"],
+    }, {
+        "name": "roi_align_adj",
+        "route": "cuda",
+        "source": "articulation3d_tpu_torch/csrc/roi_align_adj.cu",
+        "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:519",
+        "launches": train["k2"],
+        "launches_by_path": {"inference": 0, "training": train["k2"]},
+        "max_abs_err": train["adj_err"],
+        "ms": train["adj_ms"],
+        "plain_ms": train["adj_plain_ms"],
+        "bound_ms": train["adj_bound_ms"],
+        "bound_by": train["adj_bound_by"],
+        "library_ms": None,
     }]
-    _log(f"[kernels] per batch of 8 = box + mask + plane pools; kernel alone "
-         f"{tot['kernel_ms']:.4f} ms ({card})")
+    _log(f"[kernels] K1 per inference batch of 8 = box + mask + plane pools; kernel "
+         f"alone {tot['kernel_ms']:.4f} ms; K2 per training step (box pool of "
+         f"{train['rois']} ROIs); kernel alone {train['adj_kernel_ms']:.4f} ms ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def _train_batch(cfg, b: int, g: int = 4):
+    """Synthetic batch of `b` images with `g` GT boxes each, in the style of
+    tools/train_on_chip.py::_batch (np.random.RandomState(0)); only the
+    fields the config's heads read."""
+    h, w = cfg.input.height, cfg.input.width
+    rs = np.random.RandomState(0)
+    bs = max(20, min(h, w) // 5)
+    boxes = []
+    for _ in range(b * g):
+        x1 = rs.uniform(0, w - 2 * bs)
+        y1 = rs.uniform(0, h - 2 * bs)
+        boxes.append([x1, y1, x1 + rs.uniform(bs, 2 * bs), y1 + rs.uniform(bs, 2 * bs)])
+    batch = {
+        "images": rs.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+        "gt_boxes": np.asarray(boxes, np.float32).reshape(b, g, 4),
+        "gt_classes": rs.randint(0, 2, (b, g)).astype(np.int32),
+        "gt_valid": np.ones((b, g), bool),
+    }
+    assert not (cfg.model.mask_on or cfg.model.plane_on or cfg.model.axis_on
+                or cfg.model.depth_on), "stage 1 runs the detector only"
+    return batch
+
+
+def _train_weights(seed: int = 0):
+    """`random_state_dict(seed)` with the RPN delta damping of phase 3, and
+    the frozen stem conv scaled by 1/256: d2's caffe trunk takes raw 0..255
+    pixels (pixel_std 1), so random trunk weights give O(300) features and
+    O(300) gradients, and SGD at lr 0.002 diverges within a few steps; the
+    stem and res2 are frozen (freeze_at 2), so the scale is a fixed
+    normalisation of the input and the features come out O(1)."""
+    from articulation3d_tpu_torch.weights import random_state_dict
+    sd = random_state_dict(seed)
+    for k in ("weight", "bias"):
+        sd[f"proposal_generator.rpn_head.anchor_deltas.{k}"] *= 0.01
+    sd["backbone.bottom_up.stem.conv1.weight"] *= 1.0 / 256.0
+    return sd
+
+
+def _stage1_config(**model_kw):
+    from articulation3d_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(ROOT, "configs", "step1_bbox.yaml"))
+    out = os.path.join(ROOT, ".chip_smoke", "train")
+    return cfg.replace(weights="", output_dir=out,
+                       model=dataclasses.replace(cfg.model, **model_kw),
+                       solver=dataclasses.replace(cfg.solver, warmup_iters=0,
+                                                  base_lr=0.002))
+
+
+def _record_train_pool(module, store):
+    """Wrap the model's training pooler to keep its inputs, the cotangent
+    that reaches its output and the gradients it sends to its features
+    (in stage 1 the pooler is the features' only reader)."""
+    orig = module.multilevel_roi_align_train
+
+    def rec(features, boxes, **kw):
+        out = orig(features, boxes, **kw)
+        item = {"features": [f.detach() for f in features], "boxes": boxes, "kw": kw,
+                "dfeats": [None] * len(features)}
+        store.append(item)
+        if out.requires_grad:
+            out.register_hook(lambda g: item.__setitem__("g", g.detach().clone()))
+            for i, f in enumerate(features):
+                if f.requires_grad:
+                    f.register_hook(lambda d, i=i: item["dfeats"].__setitem__(
+                        i, d.detach().clone()))
+        return out
+
+    module.multilevel_roi_align_train = rec
+    return orig
+
+
+def phase_training(rac, card) -> dict:
+    """Stage 1 at full width through `Trainer`: 2 warm + 20 timed steps on
+    one batch of 16; K1/K2 launches per step, loss curve, peak memory, one
+    profiled step, then K2 at the path's own box-pool inputs."""
+    import torch
+
+    from articulation3d_tpu_torch.models import planercnn as pmod
+    from articulation3d_tpu_torch.train.trainer import Trainer
+    from articulation3d_tpu_torch.weights import load_d2_state_dict
+
+    cfg = _stage1_config()
+    sc = cfg.solver
+    batch = _train_batch(cfg, sc.ims_per_batch)
+    trainer = Trainer(cfg, [batch])
+    load_d2_state_dict(trainer.model, {k: v for k, v in _train_weights().items()
+                                       if k in trainer.model.state_dict()})
+    _log(f"[train] configs/step1_bbox.yaml as shipped (R50-FPN, dtype {cfg.model.dtype}, "
+         f"pooler {cfg.model.roi_pooler_impl}, RPN {cfg.model.rpn.pre_nms_topk_train}/"
+         f"{cfg.model.rpn.post_nms_topk_train}, {cfg.model.rpn.batch_size_per_image} anchors "
+         f"and {cfg.model.roi_heads.batch_size_per_image} ROIs per image, ims "
+         f"{sc.ims_per_batch}, {cfg.input.height}x{cfg.input.width}) except solver "
+         f"warmup_iters 0 and base_lr 0.002; weights random_state_dict(0), RPN deltas "
+         f"x0.01, frozen stem conv x1/256; one synthetic batch of {sc.ims_per_batch}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rac.multilevel_roi_align_cuda.launches = 0
+    rac.multilevel_roi_align_adjoint_cuda.launches = 0
+    t0 = time.perf_counter()
+    recs = trainer.train(2) + trainer.train(22)
+    wall = time.perf_counter() - t0
+    k1 = rac.multilevel_roi_align_cuda.launches
+    k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    n = len(recs)
+    totals = [r["total_loss"] for r in recs]
+    timed = recs[2:]
+    t_timed = sum(r["wall_s"] for r in timed)
+    _log(f"[train] {n} steps in {wall:.3f} s: first step {recs[0]['wall_s']:.4f} s "
+         f"(kernel load, cuDNN autotuning), second {recs[1]['wall_s']:.4f} s; 20 timed "
+         f"steps {t_timed:.4f} s = {len(timed) / t_timed:.4f} steps/s, "
+         f"{sc.ims_per_batch * len(timed) / t_timed:.3f} images/s; per-step walls "
+         f"{['%.4f' % r['wall_s'] for r in timed]} ({card})")
+    _log(f"[train] max_memory_allocated {peak / 2**30:.3f} GiB; launches per step K1 "
+         f"{k1 / n:.2f} K2 {k2 / n:.2f} ({k1}, {k2} over {n} steps)")
+    _log(f"[train] total_loss first {totals[0]:.6f} last {totals[-1]:.6f}; curve "
+         f"{['%.4f' % t for t in totals]}")
+    _log(f"[train] first step losses {dict((k, round(v, 6)) for k, v in recs[0].items())}")
+    _log(f"[train] last step losses {dict((k, round(v, 6)) for k, v in recs[-1].items())}")
+    assert all(np.isfinite(v) for r in recs for v in r.values()), recs
+    assert k1 == n and k2 == n, (k1, k2, n)
+    assert totals[-1] < totals[0], totals
+
+    _profile_train_step(trainer, card)
+
+    # K2 (and K1) at the training path's own box-pool inputs
+    store = []
+    orig = _record_train_pool(pmod, store)
+    try:
+        trainer.train(trainer.iter + 1)
+    finally:
+        pmod.multilevel_roi_align_train = orig
+    (item,) = store
+    feats, boxes, kw = item["features"], item["boxes"], item["kw"]
+    g = item["g"].reshape(-1, *item["g"].shape[2:]).contiguous()
+    valid = kw["valid"]
+    args = dict(strides=STRIDES, output_size=kw["output_size"],
+                sampling_ratio=kw["sampling_ratio"], aligned=kw["aligned"], valid=valid)
+    shapes = [f.shape for f in feats]
+    pr = rac._prepare(shapes, boxes, **args)
+    g = torch.where(valid.reshape(-1)[:, None, None, None], g, torch.zeros_like(g))
+    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr)
+    want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(float(b.abs().max()) for b in want)
+    assert err <= 1e-4 * scale, (err, scale)
+    adj_ms = _time_ms(lambda: rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr))
+    grads = [torch.zeros_like(d) for d in got]
+    adj_kernel_ms = _time_ms(lambda: rac._launch_adj(g, pr, grads))
+    adj_plain_ms = _time_ms(lambda: rac.multilevel_roi_align_adjoint_separable(g, shapes, pr),
+                            iters=3, warmup=1)
+    prep_ms = _time_ms(lambda: rac._prepare(shapes, boxes, **args))
+    fwd_ms = _time_ms(lambda: rac.multilevel_roi_align_cuda(feats, boxes, **args))
+    out = torch.empty((boxes.shape[0] * boxes.shape[1],) + tuple(g.shape[1:]),
+                      dtype=torch.float32, device="cuda")
+    fwd_kernel_ms = _time_ms(lambda: rac._launch(feats, pr, out, kw["output_size"]))
+    fwd_plain_ms = _time_ms(lambda: rac.multilevel_roi_align_separable(feats, boxes, **args),
+                            iters=3, warmup=1)
+    fwd_bound, fwd_by = _bound(rac, feats, boxes, valid, kw["output_size"],
+                               kw["sampling_ratio"], kw["aligned"])
+    bound, by = _adjoint_bound(rac, shapes, pr, g)
+    rois = boxes.shape[0] * boxes.shape[1]
+    _log(f"[timing] training box pool, {rois} ROIs ({int(valid.sum())} sampled), "
+         f"float32 features: K2 wrapper {adj_ms:.4f} ms (kernel alone "
+         f"{adj_kernel_ms:.4f} ms, zero fill and checks {adj_ms - adj_kernel_ms:.4f} ms), "
+         f"plain {adj_plain_ms:.4f} ms, bound {bound:.4f} ms by {by}; max_abs_err "
+         f"{err:.3e} (max|plain| {scale:.3e}); K1 wrapper {fwd_ms:.4f} ms (kernel alone "
+         f"{fwd_kernel_ms:.4f} ms), plain {fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms "
+         f"by {fwd_by}; prologue {prep_ms:.4f} ms, built once per step and saved for the "
+         f"backward ({card})")
+    return dict(k1=k1, k2=k2, rois=rois, adj_err=err, adj_ms=adj_ms,
+                adj_kernel_ms=adj_kernel_ms, adj_plain_ms=adj_plain_ms,
+                adj_bound_ms=bound, adj_bound_by=by, batch=batch,
+                k1_train=dict(ms=fwd_ms, kernel_ms=fwd_kernel_ms, plain_ms=fwd_plain_ms,
+                              bound_ms=fwd_bound, bound_by=fwd_by))
+
+
+def _adjoint_bound(rac, shapes, pr, g):
+    """Least time on an H100 SXM for one K2 call: g's rows of the valid
+    ROIs read once and each float32 cell of the four (B, H_l, W_l, C)
+    level gradients written once, over 3.35 TB/s (a kernel that gathers
+    per output cell needs no more; the zero fill and the atomics'
+    read-modify-write are costs of this design, not of the function); and
+    the multiply-adds over the support at the fp32 rate.  Returns
+    (ms, "bytes" | "operations")."""
+    ry, rx = rac._predicated_weights(pr)
+    ry_nz, rx_nz = (ry != 0).cpu().numpy(), (rx != 0).cpu().numpy()
+    nty = pr["nty"].cpu().numpy()
+    p, c = int(g.shape[-2]), int(g.shape[-1])
+    sup = lambda nz: sum(int(np.ptp(np.nonzero(row)[0])) + 1 for row in nz if row.any())
+    flops = sum(2 * c * sup(ry_nz[r]) * sup(rx_nz[r]) for r in np.nonzero(nty > 0)[0])
+    out = sum(int(np.prod(s[:3])) for s in shapes) * c * 4
+    nbytes = int((nty > 0).sum()) * p * p * c * 4 + out
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _profile_train_step(trainer, card) -> None:
+    """One warm training step under torch.profiler: device-busy share,
+    top kernels by device time and K2's share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train(trainer.iter + 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name, n = _device_time(prof)
+    total = sum(by_name.values())
+    adj = sum(v for k, v in by_name.items() if "roi_align_adj" in k)
+    fwd = sum(v for k, v in by_name.items() if "roi_align_fwd" in k)
+    _log(f"[profile-train] one warm step of {trainer.cfg.solver.ims_per_batch} images: wall "
+         f"{wall_us / 1e3:.3f} ms under the profiler, device busy {busy / 1e3:.3f} ms "
+         f"({100 * busy / wall_us:.1f}%), {n} kernels, kernel time {total / 1e3:.3f} ms; "
+         f"K2 {adj / 1e3:.3f} ms ({100 * adj / max(total, 1e-9):.2f}%), K1 {fwd / 1e3:.3f} ms "
+         f"({100 * fwd / max(total, 1e-9):.2f}%) ({card})")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        _log(f"[profile-train]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  "
+             f"{name[:110]}")
+
+
+def _device_time(prof):
+    """(busy us, {kernel name: us}, kernel count) of a profile's CUDA events."""
+    import torch
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            a, b = e.time_range.start, e.time_range.end
+            spans.append((a, b))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, by_name, len(spans)
+
+
+def phase_training_parity(rac, train) -> None:
+    """One float32 step from the same weights and generator seed with the
+    kernel pooler ("cuda": K1 forward, K2 backward) and with the gather
+    pooler under autograd ("torch"): no sampled ROI may come from a bumped
+    level; losses within 1e-4 relative; the p2 convs' gradients (which
+    also carry the RPN's) within 1e-3 x max|grad|.  Then the pooler alone:
+    on the kernel run's own features, boxes and cotangent, K3's gradients
+    to p2..p5 (K2) against the gather's autograd within 1e-4 x max|grad|
+    per level (the K2 parity tolerance).  The two runs' own pooler
+    gradients are printed beside their cotangents, not held to a
+    tolerance: the L1 box loss has a kink, so a float32 difference in the
+    forward can flip the sign of a foreground ROI's cotangent."""
+    import torch
+
+    from articulation3d_tpu_torch.models import planercnn as pmod
+    from articulation3d_tpu_torch.models.planercnn import PlaneRCNN
+    from articulation3d_tpu_torch.train.optimizer import freeze_mask
+    from articulation3d_tpu_torch.train.train_step import compute_losses, to_device
+    from articulation3d_tpu_torch.weights import load_d2_state_dict
+
+    cfg = _stage1_config(dtype="float32")
+    model = PlaneRCNN(cfg)
+    load_d2_state_dict(model, {k: v for k, v in _train_weights().items()
+                               if k in model.state_dict()})
+    model = model.cuda().train()
+    freeze_mask(model, cfg.model.freeze)
+    batch = to_device(train["batch"], "cuda")
+    names = ("backbone.fpn_output2.weight", "backbone.fpn_lateral2.weight")
+    res = {}
+    for impl in ("cuda", "torch"):
+        model.config = cfg.replace(model=dataclasses.replace(cfg.model, roi_pooler_impl=impl))
+        model.zero_grad(set_to_none=True)
+        store = []
+        orig = _record_train_pool(pmod, store)
+        rac.multilevel_roi_align_cuda.launches = 0
+        rac.multilevel_roi_align_adjoint_cuda.launches = 0
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            losses = compute_losses(model, batch, gen)
+            sum(losses.values()).backward()
+        finally:
+            pmod.multilevel_roi_align_train = orig
+        torch.cuda.synchronize()
+        boxes, valid = store[0]["boxes"], store[0]["kw"]["valid"]
+        flat = boxes.reshape(-1, 4)[valid.reshape(-1)]
+        bumped = int((rac.pallas_level_idx(flat, n_levels=4, strides=STRIDES, output_size=7,
+                                           sampling_ratio=0, aligned=True)
+                      != rac.assign_boxes_to_levels(flat) - 2).sum())
+        grads = {n: dict(model.named_parameters())[n].grad.detach().clone() for n in names}
+        assert all(d is not None for d in store[0]["dfeats"]) and "g" in store[0], impl
+        res[impl] = ({k: float(v.detach()) for k, v in losses.items()}, grads, boxes, store[0])
+        _log(f"[train-parity] {impl} pooler, float32, {batch['images'].shape[0]} images: "
+             f"K1 launches {rac.multilevel_roi_align_cuda.launches}, K2 launches "
+             f"{rac.multilevel_roi_align_adjoint_cuda.launches}; sampled ROIs pooled from a "
+             f"bumped level: {bumped}/{flat.shape[0]}; losses "
+             f"{dict((k, round(v, 6)) for k, v in res[impl][0].items())}")
+        assert bumped == 0, bumped
+    (la, ga, ba, ia), (lb, gb, bb, ib) = res["cuda"], res["torch"]
+    assert bool((ba == bb).all()), "the two runs sampled different ROIs"
+    lerr = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12) for k in lb)
+    gerr = {n: float((ga[n] - gb[n]).abs().max()) / float(gb[n].abs().max()) for n in names}
+    _log(f"[train-parity] losses max rel err {lerr:.3e} (tol 1e-4); p2 conv gradients max "
+         f"abs err / max|grad| {dict((n, float('%.3e' % v)) for n, v in gerr.items())} "
+         f"(tol 1e-3)")
+    assert lerr <= 1e-4, lerr
+    assert all(v <= 1e-3 for v in gerr.values()), gerr
+
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    dg = (ia["g"] - ib["g"]).abs().flatten(2).amax(-1)             # per ROI
+    _log(f"[train-parity] the two runs' cotangents at the pooler: max abs err / max|g| "
+         f"{rel(ia['g'], ib['g']):.3e}, ROIs whose rows differ by more than 1e-4 x max|g|: "
+         f"{int((dg > 1e-4 * float(ib['g'].abs().max())).sum())}/{dg.numel()}; their "
+         f"pooler gradients, max abs err / max|grad| per level "
+         f"{['%.3e' % rel(a, b) for a, b in zip(ia['dfeats'], ib['dfeats'])]}")
+    # the pooler alone, on one set of features, boxes and cotangent
+    vjp = {}
+    for impl in ("cuda", "torch"):
+        fs = [f.clone().requires_grad_(True) for f in ia["features"]]
+        out = rac.multilevel_roi_align_train(fs, ia["boxes"], **dict(ia["kw"], impl=impl))
+        vjp[impl] = torch.autograd.grad(out, fs, grad_outputs=ia["g"])
+    torch.cuda.synchronize()
+    perr = [rel(a, b) for a, b in zip(vjp["cuda"], vjp["torch"])]
+    scale = [float(b.abs().max()) for b in vjp["torch"]]
+    _log(f"[train-parity] pooler alone, one cotangent: K3 (K2) against the gather's autograd, "
+         f"max abs err / max|grad| per level p2..p5 {['%.3e' % e for e in perr]} (tol 1e-4; "
+         f"max|grad| {['%.3e' % v for v in scale]})")
+    assert all(e <= 1e-4 for e in perr), perr
+    assert scale[0] > 0, scale
 
 
 def _profile_step(pipe, frames, card) -> None:
@@ -402,21 +815,11 @@ def _profile_step(pipe, frames, card) -> None:
         pipe.step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            a, b = e.time_range.start, e.time_range.end
-            spans.append((a, b))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
-    busy, end = 0.0, -1.0
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy, by_name, n = _device_time(prof)
     total = sum(by_name.values())
     _log(f"[profile] one warm step of 8 frames: wall {wall_us / 1e3:.3f} ms under the "
          f"profiler, device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
-         f"{len(spans)} kernels, kernel time {total / 1e3:.3f} ms ({card})")
+         f"{n} kernels, kernel time {total / 1e3:.3f} ms ({card})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         _log(f"[profile]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  {name[:110]}")
 

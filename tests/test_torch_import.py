@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no JAX package, and no silent CPU fallback.
 
   * a fresh interpreter imports every module of `articulation3d_tpu_torch`
-    and `chip_smoke.py` and finds neither `jax`, `flax` nor
-    `articulation3d_tpu` in `sys.modules`;
+    (the training slice's `train.*` among them) and `chip_smoke.py` and
+    finds neither `jax`, `flax`, `optax` nor `articulation3d_tpu` in
+    `sys.modules`;
   * no import statement in the port or in `chip_smoke.py` names them;
   * entry points called without a device run on the card, and raise where
     there is none;
@@ -26,14 +27,18 @@ PORT = ROOT / "articulation3d_tpu_torch"
 _IMPORT_ALL = r"""
 import importlib, importlib.util, pkgutil, sys
 import articulation3d_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "articulation3d_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "articulation3d_tpu"))
+print("IMPORTED=" + ",".join(names))
 print("BAD=" + ",".join(bad))
 """
+
+_TRAIN_MODULES = ("checkpoint", "optimizer", "targets", "train_step", "trainer")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -43,13 +48,18 @@ def test_importing_the_port_loads_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD=\n" in out.stdout, out.stdout
+    imported = out.stdout.split("IMPORTED=")[1].split("\n")[0].split(",")
+    for m in _TRAIN_MODULES:
+        assert f"articulation3d_tpu_torch.train.{m}" in imported, m
 
 
 def test_no_import_statement_names_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|articulation3d_tpu)(\.|\s|$)",
-                     re.M)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|articulation3d_tpu)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {f"{m}.py" for m in _TRAIN_MODULES} <= {f.name for f in files
+                                                   if f.parent.name == "train"}
     for f in files:
         assert not pat.search(f.read_text()), f
 

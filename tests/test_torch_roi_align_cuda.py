@@ -1,4 +1,5 @@
-"""The ROIAlign CUDA kernel against its plain torch version, on the card.
+"""The ROIAlign CUDA kernels (K1 forward, K2 adjoint) and the training
+pooler built from them (K3) against their plain torch versions, on the card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch and the CUDA toolkit (from the repository root):
@@ -8,7 +9,10 @@ only PyTorch and the CUDA toolkit (from the repository root):
 Elsewhere each test skips itself.  Tolerances: float32 1e-5 x max |out|
 (the same float32 sums in another order); bfloat16 1e-2 x max |out| (the
 stated bf16 budget; kernel and plain version read the same bf16 features
-with float32 weights).  Invalid ROIs must give exact zeros.
+with float32 weights).  Invalid ROIs must give exact zeros.  K2 adds with
+float32 atomics in a varying order: within 1e-4 x max |plain|, and the
+transpose identity <K1(F), G> = <F, K2(G)> summed in float64 within 1e-5
+relative.
 """
 
 import numpy as np
@@ -69,3 +73,80 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         rac.multilevel_roi_align_cuda([f.float() for f in feats], boxes,
                                       strides=STRIDES, output_size=20,
                                       sampling_ratio=0, aligned=True)
+
+
+def _cuda_case(p, sr, aligned, seed=1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feats = [torch.randn((1, h, w, 256), generator=gen, device="cuda")
+             for h, w in ((120, 160), (60, 80), (30, 40), (15, 20))]
+    boxes = torch.from_numpy(_boxes(np.random.RandomState(seed), 64)).cuda()
+    valid = torch.rand(boxes.shape[:2], generator=gen, device="cuda") > 0.2
+    valid[0, -2:] = True                       # the two bumped-level 9:1 boxes
+    kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
+    return gen, feats, boxes, valid, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,sr,aligned", POOLS)
+def test_cuda_adjoint_matches_plain_version_and_transposes_k1(p, sr, aligned):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen, feats, boxes, valid, kw = _cuda_case(p, sr, aligned)
+    shapes = [f.shape for f in feats]
+    pr = rac._prepare(shapes, boxes, valid=valid, **kw)
+    levels = pr["levels"].long()
+    bumped = rac.pallas_level_idx(boxes.reshape(-1, 4), n_levels=4, strides=STRIDES,
+                                  output_size=p, sampling_ratio=sr, aligned=aligned)
+    base = rac.assign_boxes_to_levels(boxes.reshape(-1, 4)) - 2
+    assert bool((bumped != base).any())        # the 9:1 set leaves its level
+    g = torch.randn((levels.numel(), p, p, 256), generator=gen, device="cuda")
+    before = rac.multilevel_roi_align_adjoint_cuda.launches
+    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr)
+    assert rac.multilevel_roi_align_adjoint_cuda.launches == before + 1
+    want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
+    fwd = rac.multilevel_roi_align_cuda(feats, boxes, valid=valid, **kw)
+    torch.cuda.synchronize()
+    scale = max(float(w.abs().max()) for w in want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+    # invalid ROIs send nothing: a cotangent only on them gives zero gradients
+    only_invalid = g * (~valid).reshape(-1, 1, 1, 1)
+    assert all(float(d.abs().max()) == 0.0
+               for d in rac.multilevel_roi_align_adjoint_cuda(only_invalid, shapes, pr))
+    lhs = float((fwd.double() * g.reshape(fwd.shape).double()).sum())
+    rhs = float(sum((f.double() * d.double()).sum() for f, d in zip(feats, got)))
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,sr,aligned", POOLS)
+def test_cuda_train_pool_matches_plain_versions(p, sr, aligned):
+    """K3 with impl "cuda": K1 forward and K2 backward through autograd
+    against the plain forward and adjoint on the same card tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen, feats, boxes, valid, kw = _cuda_case(p, sr, aligned, seed=2)
+    g = torch.randn((*boxes.shape[:2], p, p, 256), generator=gen, device="cuda")
+    fs = [f.clone().requires_grad_(True) for f in feats]
+    bx = boxes.clone().requires_grad_(True)
+    k1, k2 = rac.multilevel_roi_align_cuda.launches, \
+        rac.multilevel_roi_align_adjoint_cuda.launches
+    out = rac.multilevel_roi_align_train(fs, bx, valid=valid, impl="cuda", **kw)
+    out.backward(g)
+    assert rac.multilevel_roi_align_cuda.launches == k1 + 1
+    assert rac.multilevel_roi_align_adjoint_cuda.launches == k2 + 1
+    shapes = [f.shape for f in feats]
+    pr = rac._prepare(shapes, boxes, valid=valid, **kw)
+    ref_out = rac.multilevel_roi_align_separable(feats, boxes, valid=valid, **kw)
+    g_valid = torch.where(valid[..., None, None, None], g, torch.zeros_like(g))
+    ref_dfeats = rac.multilevel_roi_align_adjoint_separable(g_valid, shapes, pr)
+    torch.cuda.synchronize()
+    assert float((out.detach() - ref_out).abs().max()) <= 1e-5 * float(ref_out.abs().max())
+    assert bool((out.detach()[~valid] == 0).all())
+    scale = max(float(d.abs().max()) for d in ref_dfeats)
+    for f, ref in zip(fs, ref_dfeats):
+        assert float((f.grad - ref).abs().max()) <= 1e-4 * scale
+    assert bx.grad is not None and float(bx.grad.abs().max()) == 0.0
