@@ -3,106 +3,129 @@
 //
 // Replaces the Pallas TPU kernel `_adjoint_kernel_factory` in
 // articulation3d_tpu/ops/roi_align_pallas.py:519-586, launched by
-// `multilevel_roi_align_adjoint_pallas` (589-732).  From the forward's own
-// per-ROI prologue (level after the window bump, image id, window origin
-// y0/x0, tile counts nty/ntx, separable weights Ry (P x 64) and Rx (P x 80),
-// built by `articulation3d_tpu_torch/ops/roi_align_cuda.py::_prepare`) it
-// computes the exact transpose of csrc/roi_align_fwd.cu:
+// `multilevel_roi_align_adjoint_pallas` (589-732).  It computes the exact
+// transpose of csrc/roi_align_fwd.cu (K1):
 //
 //     dF_level[b, y0 + y, x0 + x, c] += sum_p sum_q Ry[r, p, y] * Rx[r, q, x]
 //                                                   * g[r, p, q, c]
 //
-// for the tiles the ROI spans (y < 32 * nty, x < 40 * ntx) and only for the
-// cells inside the real level map (y0 + y < H, x0 + x < W).  The Pallas
-// kernel accumulated the out-of-map cells into a padded scratch and cropped
-// them afterwards; dropping them is the same result, and writing them would
-// run past p4 and p5, where the capped window origin lets a 64x80 window
-// hang over the map.  An invalid ROI (nty == 0) writes nothing.  Ry/Rx are
-// used as the prologue built them (window-edge snap included), so forward
-// and adjoint stay an exact linear map and transpose for every ROI.
+// for the tiles the ROI spans and only for the cells inside the real level
+// map.  The Pallas kernel accumulated the out-of-map cells into a padded
+// scratch and cropped them afterwards; dropping them is the same result.
+// Each block reads its ROI's record (level, y0, x0, nty, ntx) as K1 wrote
+// it and rebuilds Ry/Rx from the box through roi_align_prologue.cuh, the
+// same code K1 ran, so the weights are bit-identical and forward and
+// adjoint stay an exact linear map and transpose for every ROI (window-edge
+// snap included).  An invalid ROI (nty == 0) reads and writes nothing.
 //
-// Bound on an H100 SXM: memory bytes.  Each touched gradient cell costs a
-// read and a write (the atomic add) of 4 bytes per channel against a few
-// tens of multiply-adds, far below the ~20 FLOP/byte ridge of fp32 CUDA
-// cores; with the zero fill of the level gradients and one read of g, the
-// least time is those bytes over 3.35 TB/s.
+// Bound on an H100 SXM: memory bytes.  g's rows of the valid ROIs read
+// once and each float32 cell of the level gradients written once, over
+// 3.35 TB/s: 0.247 ms at the training box pool (8192 ROIs, 7x7, C = 256).
+// The zero fill of the gradients and the atomics' read-modify-write are
+// costs of this design, not of the function.
 //
-// Design (first version: simple and right, no TMA and no wgmma yet):
-//   * one thread block per ROI, 256 threads across the channels, so every
-//     read of g and every atomic add into the channels-last gradient is
-//     coalesced;
-//   * the ROI's Ry/Rx rows, cut to its tiles and to the real map, staged in
-//     shared memory, with the first and last p (q) of non-zero weight for
-//     every window row y (column x); a cell outside both supports is never
-//     visited, so the sum runs over the same support as the forward's;
-//   * float32 sums, one atomicAdd per touched cell and channel.  ROI
-//     windows overlap and the card runs ROIs concurrently (the TPU ran its
-//     grid in sequence, roi_align_pallas.py:496-506), so the adds are
-//     atomic and their order, hence the last bits of the sum, varies
-//     between runs.
+// Design:
+//   * grid (ROI, channel slice); the block stages its ROI's cotangent rows
+//     g[r, :, :, slice] in shared memory once, with 16-byte loads: all 256
+//     channels at P = 7 (50 KB), 64-channel slices at P = 14 (50 KB), so a
+//     cotangent value is read from device memory once (the first version
+//     re-read it from L1/L2 for every window cell, ~4 times per cell);
+//   * a thread owns 4 channels; the block's thread groups split the window
+//     columns.  Per column x of the support, T[p] = sum_q Rx[q, x] g[p, q]
+//     in registers (P a template parameter), then per row y of the support
+//     sum_p Ry[p, y] T[p], added to dF[b, y0 + y, x0 + x, c..c+3] with one
+//     16-byte vector reduction (red.global.add.v4.f32, native on sm_90): a
+//     quarter of the first version's atomic instructions, and no old value
+//     sent back;
+//   * ROI windows overlap and ROIs run at once (the TPU ran its grid in
+//     sequence, roi_align_pallas.py:496-506), so the adds stay atomic and
+//     their order, hence the last bits of the sum, varies between runs.
+//
+// Predicted before the first chip run: 0.7-1.5 ms at the training box
+// pool (3-6x its bound); the atomics' read-modify-write of every touched
+// cell (about 0.8 GB of float4 atomics, in L2) is what stays.
 
 #include <cuda_runtime.h>
 
+#include "roi_align_prologue.cuh"
+
 namespace {
 
-constexpr int kTileY = 32;
-constexpr int kTileX = 40;
-constexpr int kSpanY = 2 * kTileY;
-constexpr int kSpanX = 2 * kTileX;
-constexpr int kMaxP = 16;
+using namespace roi_prologue;
+
 constexpr int kThreads = 256;
+constexpr int kStageFloats = 12544;   // 49 KB of staged cotangent per block
 
 struct Grads {
   float* d[4];
-  int h[4];
-  int w[4];
 };
 
+// dst[0..3] += v with one 16-byte reduction (red.global.add.v4.f32, sm_90):
+// no old value comes back to the SM, as it would with atomicAdd's ATOM.
+__device__ __forceinline__ void red_add4(float* dst, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+}
+
+template <int PMAX, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
-roi_align_adj_kernel(Grads gr, int C, int P,
-                     const int* __restrict__ level, const int* __restrict__ bid,
-                     const int* __restrict__ y0s, const int* __restrict__ x0s,
-                     const int* __restrict__ ntys, const int* __restrict__ ntxs,
-                     const float* __restrict__ ry, const float* __restrict__ rx,
-                     const float* __restrict__ g) {
-  __shared__ float sry[kMaxP][kSpanY];
-  __shared__ float srx[kMaxP][kSpanX];
+roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
+                     const float* __restrict__ boxes, const int* __restrict__ record,
+                     int n_per_image, const float* __restrict__ g) {
+  extern __shared__ float4 sg4[];
+  __shared__ float sry[PMAX][kSpanY];
+  __shared__ float srx[PMAX][kSpanX];
+  __shared__ int ylo[PMAX], yhi[PMAX], xlo[PMAX], xhi[PMAX];
   __shared__ int plo[kSpanY], phi[kSpanY], qlo[kSpanX], qhi[kSpanX];
 
+  const int P = EXACT ? PMAX : o.P;
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nty = ntys[r];
-  if (nty == 0) return;
-  const int l = level[r];
-  const int b = bid[r];
-  const int y0 = y0s[r];
-  const int x0 = x0s[r];
-  const int H = gr.h[l];
-  const int W = gr.w[l];
-  // window rows/cols the ROI may write: its spanned tiles, inside the map
-  const int ylim = min(nty * kTileY, H - y0);
-  const int xlim = min(ntxs[r] * kTileX, W - x0);
+  const int* rr = record + static_cast<size_t>(r) * kRecord;
+  Record rec;
+  rec.level = rr[0]; rec.y0 = rr[1]; rec.x0 = rr[2]; rec.nty = rr[3]; rec.ntx = rr[4];
+  if (rec.nty == 0) return;
+  const int l = rec.level;
+  const int H = o.h[l];
+  const int W = o.w[l];
+  const float* box = boxes + static_cast<size_t>(r) * 4;
 
-  const float* ryr = ry + static_cast<size_t>(r) * P * kSpanY;
-  const float* rxr = rx + static_cast<size_t>(r) * P * kSpanX;
-  for (int i = tid; i < P * kSpanY; i += blockDim.x) {
-    const int y = i % kSpanY;
-    sry[i / kSpanY][y] = y < ylim ? ryr[i] : 0.f;
+  // stage this block's channel slice of g[r] (P*P rows of cs floats)
+  const int c0 = blockIdx.y * cs_max;
+  const int cs = min(cs_max, C - c0);
+  const int cs4 = cs / 4;
+  const float* g_roi = g + static_cast<size_t>(r) * P * P * C + c0;
+  for (int i = tid; i < P * P * cs4; i += kThreads) {
+    const int pq = i / cs4;
+    sg4[i] = *reinterpret_cast<const float4*>(g_roi + static_cast<size_t>(pq) * C +
+                                              (i - pq * cs4) * 4);
   }
-  for (int i = tid; i < P * kSpanX; i += blockDim.x) {
-    const int x = i % kSpanX;
-    srx[i / kSpanX][x] = x < xlim ? rxr[i] : 0.f;
+
+  // weights, rebuilt as K1 built them
+  const Axis ay = axis_params(box[1], box[3], o.scale[l], o);
+  const Axis ax = axis_params(box[0], box[2], o.scale[l], o);
+  for (int i = tid; i < P * kSpanY; i += kThreads) sry[i / kSpanY][i % kSpanY] = 0.f;
+  for (int i = tid; i < P * kSpanX; i += kThreads) srx[i / kSpanX][i % kSpanX] = 0.f;
+  __syncthreads();
+  if (tid < P) {
+    build_row(&sry[tid][0], ay, tid, H, rec.y0, kSpanY,
+              min(rec.nty * kTileY, H - rec.y0), &ylo[tid], &yhi[tid]);
+  } else if (tid < 2 * P) {
+    const int q = tid - P;
+    build_row(&srx[q][0], ax, q, W, rec.x0, kSpanX,
+              min(rec.ntx * kTileX, W - rec.x0), &xlo[q], &xhi[q]);
   }
   __syncthreads();
-  // per window row (col): the first and last output row p (col q) whose
-  // weight on it is non-zero; lo > hi marks a row (col) no sample touches
-  for (int i = tid; i < kSpanY + kSpanX; i += blockDim.x) {
+  // per window row (column): the first and last output row p (column q)
+  // whose support holds it; lo > hi marks one that no support holds
+  for (int i = tid; i < kSpanY + kSpanX; i += kThreads) {
     const bool is_y = i < kSpanY;
     const int k = is_y ? i : i - kSpanY;
     int lo = P, hi = -1;
     for (int p = 0; p < P; ++p) {
-      const float w = is_y ? sry[p][k] : srx[p][k];
-      if (w != 0.f) {
+      const int a = is_y ? ylo[p] : xlo[p];
+      const int b = is_y ? yhi[p] : xhi[p];
+      if (a <= k && k <= b) {
         lo = min(lo, p);
         hi = p;
       }
@@ -111,62 +134,111 @@ roi_align_adj_kernel(Grads gr, int C, int P,
     (is_y ? phi : qhi)[k] = hi;
   }
   __syncthreads();
-
-  const float* gr_roi = g + static_cast<size_t>(r) * P * P * C;
-  const size_t row_stride = static_cast<size_t>(W) * C;
-  float* d = gr.d[l] + (static_cast<size_t>(b) * H + y0) * row_stride +
-             static_cast<size_t>(x0) * C;
-  for (int c = tid; c < C; c += blockDim.x) {
-    for (int y = 0; y < ylim; ++y) {
-      const int p0 = plo[y], p1 = phi[y];
-      if (p1 < p0) continue;
-      float* drow = d + y * row_stride + c;
-      for (int x = 0; x < xlim; ++x) {
-        const int q0 = qlo[x], q1 = qhi[x];
-        if (q1 < q0) continue;
-        float acc = 0.f;
-        for (int p = p0; p <= p1; ++p) {
-          const float wy = sry[p][y];
-          if (wy == 0.f) continue;
-          const float* gp = gr_roi + static_cast<size_t>(p) * P * C + c;
-          float s = 0.f;
-          for (int q = q0; q <= q1; ++q) {
-            s += srx[q][x] * gp[static_cast<size_t>(q) * C];
-          }
-          acc += wy * s;
-        }
-        atomicAdd(drow + static_cast<size_t>(x) * C, acc);
-      }
+  int y_first = kSpanY, y_last = -1, x_first = kSpanX, x_last = -1;
+  for (int p = 0; p < P; ++p) {
+    if (ylo[p] <= yhi[p]) {
+      y_first = min(y_first, ylo[p]);
+      y_last = max(y_last, yhi[p]);
+    }
+    if (xlo[p] <= xhi[p]) {
+      x_first = min(x_first, xlo[p]);
+      x_last = max(x_last, xhi[p]);
     }
   }
+
+  const int lanes = cs4;                       // <= kThreads by the wrapper
+  const int groups = kThreads / lanes;         // window-column groups
+  const int grp = tid / lanes;
+  if (grp >= groups) return;
+  const int lane = tid - grp * lanes;
+  const int b = r / n_per_image;
+  const size_t row_stride = static_cast<size_t>(W) * C;
+  float* d = gr.d[l] + (static_cast<size_t>(b) * H + rec.y0) * row_stride +
+             static_cast<size_t>(rec.x0) * C + c0 + lane * 4;
+  for (int x = x_first + grp; x <= x_last; x += groups) {
+    const int q0 = qlo[x], q1 = qhi[x];
+    if (q1 < q0) continue;
+    float4 t[PMAX];
+#pragma unroll
+    for (int p = 0; p < PMAX; ++p) t[p] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = q0; q <= q1; ++q) {
+      const float wx = srx[q][x];
+      if (wx == 0.f) continue;
+#pragma unroll
+      for (int p = 0; p < PMAX; ++p) {
+        if (!EXACT && p >= P) break;
+        const float4 v = sg4[(p * P + q) * cs4 + lane];
+        t[p].x += wx * v.x; t[p].y += wx * v.y; t[p].z += wx * v.z; t[p].w += wx * v.w;
+      }
+    }
+    float* dcol = d + static_cast<size_t>(x) * C;
+    for (int y = y_first; y <= y_last; ++y) {
+      const int p0 = plo[y], p1 = phi[y];
+      if (p1 < p0) continue;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int p = 0; p < PMAX; ++p) {
+        if (!EXACT && p >= P) break;
+        if (p < p0 || p > p1) continue;
+        const float wy = sry[p][y];
+        acc.x += wy * t[p].x; acc.y += wy * t[p].y; acc.z += wy * t[p].z; acc.w += wy * t[p].w;
+      }
+      red_add4(dcol + y * row_stride, acc);
+    }
+  }
+}
+
+template <int PMAX, bool EXACT>
+int launch(int T, cudaStream_t s, const Grads& gr, const Opts& o, int C, int cs,
+           const float* boxes, const int* record, int n, const float* g) {
+  const size_t smem = static_cast<size_t>(o.P) * o.P * cs * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(roi_align_adj_kernel<PMAX, EXACT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(T, (C + cs - 1) / cs);
+  roi_align_adj_kernel<PMAX, EXACT><<<grid, dim3(kThreads), smem, s>>>(
+      gr, o, C, cs, boxes, record, n, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  Pointers are device
 // pointers; `stream` is a cudaStream_t.  d2..d5 are the float32 level
-// gradients (B, H_l, W_l, C), zeroed by the caller; g is the float32 pooled
-// cotangent (T, P, P, C) in [p, q, c] order.
+// gradients (B, H_l, W_l, C), zeroed by the caller; boxes (T, 4) float32
+// and record (T, 5) int32 are the forward's; g is the float32 pooled
+// cotangent (T, P, P, C) in [p, q, c] order.  C must be a multiple of 4,
+// every pointer 16-byte aligned.
 extern "C" int roi_align_adj(void* d2, void* d3, void* d4, void* d5, int h2,
                              int w2, int h3, int w3, int h4, int w4, int h5,
-                             int w5, int C, int P, const void* level,
-                             const void* bid, const void* y0, const void* x0,
-                             const void* nty, const void* ntx, const void* ry,
-                             const void* rx, const void* g, int T,
-                             void* stream) {
+                             int w5, float s2, float s3, float s4, float s5, int C,
+                             int P, int sampling_ratio, int aligned, int min_level,
+                             const void* boxes, const void* record, int n_per_image,
+                             const void* g, int T, void* stream) {
   if (T <= 0) return 0;
-  if (P < 1 || P > kMaxP || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 1 || P > kMaxP || C < 4 || C % 4 != 0 || n_per_image < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // channel slice: as many channels as fit the staging budget, a multiple
+  // of 4, at most one per thread group of 4 channels
+  const int cs = min(C, min(kThreads * 4, max(4, kStageFloats / (P * P) / 4 * 4)));
   Grads gr;
   gr.d[0] = static_cast<float*>(d2); gr.d[1] = static_cast<float*>(d3);
   gr.d[2] = static_cast<float*>(d4); gr.d[3] = static_cast<float*>(d5);
-  gr.h[0] = h2; gr.h[1] = h3; gr.h[2] = h4; gr.h[3] = h5;
-  gr.w[0] = w2; gr.w[1] = w3; gr.w[2] = w4; gr.w[3] = w5;
-  roi_align_adj_kernel<<<dim3(T), dim3(kThreads), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      gr, C, P, static_cast<const int*>(level), static_cast<const int*>(bid),
-      static_cast<const int*>(y0), static_cast<const int*>(x0),
-      static_cast<const int*>(nty), static_cast<const int*>(ntx),
-      static_cast<const float*>(ry), static_cast<const float*>(rx),
-      static_cast<const float*>(g));
-  return static_cast<int>(cudaGetLastError());
+  Opts o;
+  o.P = P;
+  o.sampling_ratio = sampling_ratio;
+  o.aligned = aligned;
+  o.min_level = min_level;
+  o.scale[0] = s2; o.scale[1] = s3; o.scale[2] = s4; o.scale[3] = s5;
+  o.h[0] = h2; o.h[1] = h3; o.h[2] = h4; o.h[3] = h5;
+  o.w[0] = w2; o.w[1] = w3; o.w[2] = w4; o.w[3] = w5;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bp = static_cast<const float*>(boxes);
+  const int* rp = static_cast<const int*>(record);
+  const float* gp = static_cast<const float*>(g);
+  if (P == 7) return launch<7, true>(T, s, gr, o, C, cs, bp, rp, n_per_image, gp);
+  if (P == 14) return launch<14, true>(T, s, gr, o, C, cs, bp, rp, n_per_image, gp);
+  return launch<kMaxP, false>(T, s, gr, o, C, cs, bp, rp, n_per_image, gp);
 }

@@ -2,141 +2,242 @@
 //
 // Replaces the Pallas TPU kernel `_kernel` in
 // articulation3d_tpu/ops/roi_align_pallas.py:184-270, launched by
-// `multilevel_roi_align_pallas` (378-482).  It computes exactly what that
-// kernel computes, from the same per-ROI prologue (level after the window
-// bump, image id, window origin y0/x0, tile counts nty/ntx, separable weights
-// Ry (P x 64) and Rx (P x 80)), which the torch wrapper
-// `articulation3d_tpu_torch/ops/roi_align_cuda.py::_prepare` builds:
+// `multilevel_roi_align_pallas` (378-482), prologue included: one launch
+// per pool call takes the boxes and the valid mask and computes
 //
 //     out[r, p, q, c] = sum_y sum_x Ry[r, p, y] * Rx[r, q, x]
 //                                   * F_level[b, y0 + y, x0 + x, c]
 //
-// over the tiles the ROI spans (y < 32 * nty, x < 40 * ntx) and the cells
-// inside the real level map.  The Pallas kernel read those cells from a
-// zero-padded copy; here they are skipped, which is the same sum.
+// with the level, window origin, tile counts and separable weights of
+// roi_align_prologue.cuh (the device form of `ops/roi_align_cuda.py::
+// _prepare`), over the tiles the ROI spans and the cells inside the real
+// level map.  The Pallas kernel read those cells from a zero-padded copy;
+// here they are skipped, which is the same sum.  It also writes each ROI's
+// record (level, y0, x0, nty, ntx) as int32, for the adjoint (K2) and the
+// tests; an invalid ROI (nty = 0) writes zeros and reads no feature.
 //
-// Bound on an H100 SXM: memory bytes.  Each ROI does about
-// (support rows x support cols) multiply-adds per output element, a few
-// tens, far below the ~20 FLOP/byte ridge of fp32 CUDA cores, so the least
-// time is (output written, B*N*P*P*C*4 bytes, plus the feature cells the
-// ROIs read, plus the weights) over 3.35 TB/s.
+// Bound on an H100 SXM: memory bytes.  The output, B*N*P*P*C*4 bytes, plus
+// the feature cells the ROIs read, over 3.35 TB/s: at the serving box pool
+// (8000 ROIs, 7x7, bf16 maps) 0.148 ms, at the training box pool (8192
+// ROIs, float32 maps) 0.205 ms.  Each cell costs about one multiply-add per
+// output row and column whose support holds it, far below the ~20 FLOP per
+// byte ridge of the fp32 CUDA cores.
 //
-// Design (first version: simple and right, no TMA and no wgmma yet):
-//   * one thread block per ROI, 256 threads across the channels, so every
-//     read of the channels-last features and every write of the
-//     [p, q, c]-ordered output is coalesced;
-//   * the ROI's Ry/Rx rows (about 8 KB at P = 14), already cut to its tiles
-//     and to the real map, and the first/last non-zero entry of each row,
-//     staged in shared memory; the sum visits only that support;
-//   * float32 accumulation; the output is written once, in [p, q, c] order
-//     (the TPU kernel wrote [q, p, c] and swapped afterwards);
-//   * an invalid ROI (nty == 0) writes zeros and reads nothing.
-// Features may be float32 or bfloat16.  Ry/Rx stay float32 for bfloat16
-// features, where the TPU kernel rounded them to bfloat16 for its matrix
-// unit; the results therefore differ from the TPU's by about 2^-9 relative.
+// Design:
+//   * the prologue is fused: every thread derives its ROI's record from
+//     the box in registers; 2P threads build the Ry/Rx rows and their
+//     supports straight into shared memory.  No per-ROI tensor but the
+//     20-byte record goes to device memory (the first version read Ry/Rx,
+//     8 KB per ROI, built by about 100 torch launches per call);
+//   * a thread owns 8 bf16 or 4 float32 consecutive channels, so every
+//     feature load is 16 bytes and a warp reads 512 contiguous bytes of a
+//     channels-last row; the threads of a block split the work items, an
+//     output column q and a block of at most 8 output rows p (two blocks
+//     of 7 at P = 14), which keeps the accumulators in 128 registers;
+//   * separable sums in registers, with P a template parameter (7, 14, or
+//     up to 16 at run time): per work item the thread sweeps the window
+//     rows y of the block's support once, top to bottom, forms
+//     H[q] = sum_x Rx[q, x] F[y, x] over the column's support and adds
+//     Ry[p, y] H[q] into the rows p whose weight at y is non-zero; each
+//     output is written once, in [p, q, c] order, with 16-byte stores.  A
+//     feature cell is loaded once per window row sweep and per column whose
+//     support holds it (neighbouring bins share one or two cells);
+//   * float32 accumulation with float32 weights for bf16 features (the TPU
+//     rounded the weights to bf16 for its matrix unit).
+//
+// Predicted before the first chip run: the box pool at 2-3x its bound
+// (0.3-0.45 ms), the 14x14 pools at 1.5-2.5x (0.09-0.15 ms); the wrapper
+// adds only the output's allocation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "roi_align_prologue.cuh"
+
 namespace {
 
-constexpr int kTileY = 32;
-constexpr int kTileX = 40;
-constexpr int kSpanY = 2 * kTileY;
-constexpr int kSpanX = 2 * kTileX;
-constexpr int kMaxP = 16;
-constexpr int kThreads = 256;
+using namespace roi_prologue;
+
+// Launch shape by compiled row count, chosen on the card at the pools'
+// shapes: at P <= 8, 128 threads, 4 blocks per SM and the column loop
+// unrolled 4 times; at P <= 16, 256 threads and 2 blocks (more work items
+// per ROI to share), unrolled twice.
+template <int PMAX>
+struct Shape {
+  static constexpr int threads = PMAX <= 8 ? 128 : 256;
+  static constexpr int min_blocks = PMAX <= 8 ? 4 : 2;
+  static constexpr int x_unroll = PMAX <= 8 ? 4 : 2;
+};
 
 struct Levels {
   const void* f[4];
-  int h[4];
-  int w[4];
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* v) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* v) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// PMAX: the compiled row count; EXACT: P == PMAX, else P <= PMAX at run time.
+// A work item is one output column q and a block of at most 8 output rows
+// (two blocks of 7 at P = 14), so the accumulators stay under 128
+// registers and 16 warps share an SM: the feature loads need warps in
+// flight more than registers.
+template <typename T, int PMAX, bool EXACT>
+__global__ void __launch_bounds__(Shape<PMAX>::threads, Shape<PMAX>::min_blocks)
+roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
+                     const bool* __restrict__ valid, int n_per_image,
+                     int* __restrict__ record, float* __restrict__ out) {
+  constexpr int V = Vec<T>::N;
+  constexpr int kThreads = Shape<PMAX>::threads;
+  constexpr int PB = PMAX <= 8 ? PMAX : (PMAX + 1) / 2;   // rows per work item
+  __shared__ float sry[PMAX][kSpanY];
+  __shared__ float srx[PMAX][kSpanX];
+  __shared__ int ylo[PMAX], yhi[PMAX], xlo[PMAX], xhi[PMAX];
+
+  const int P = EXACT ? PMAX : o.P;
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* box = boxes + static_cast<size_t>(r) * 4;
+  const bool ok = valid == nullptr || valid[r];
+  Axis ay, ax;
+  const Record rec = roi_record(box, ok, o, &ay, &ax);
+  if (tid == 0) {
+    int* rr = record + static_cast<size_t>(r) * kRecord;
+    rr[0] = rec.level; rr[1] = rec.y0; rr[2] = rec.x0; rr[3] = rec.nty; rr[4] = rec.ntx;
+  }
+  float* o_roi = out + static_cast<size_t>(r) * P * P * C;
+  if (rec.nty == 0) {
+    float4* o4 = reinterpret_cast<float4*>(o_roi);
+    for (int i = tid; i < P * P * C / 4; i += kThreads) o4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const int l = rec.level;
+  const int H = o.h[l];
+  const int W = o.w[l];
+  for (int i = tid; i < P * kSpanY; i += kThreads) sry[i / kSpanY][i % kSpanY] = 0.f;
+  for (int i = tid; i < P * kSpanX; i += kThreads) srx[i / kSpanX][i % kSpanX] = 0.f;
+  __syncthreads();
+  if (tid < P) {
+    build_row(&sry[tid][0], ay, tid, H, rec.y0, kSpanY,
+              min(rec.nty * kTileY, H - rec.y0), &ylo[tid], &yhi[tid]);
+  } else if (tid < 2 * P) {
+    const int q = tid - P;
+    build_row(&srx[q][0], ax, q, W, rec.x0, kSpanX,
+              min(rec.ntx * kTileX, W - rec.x0), &xlo[q], &xhi[q]);
+  }
+  __syncthreads();
+
+  const int b = r / n_per_image;
+  const size_t row_stride = static_cast<size_t>(W) * C;
+  const T* f = static_cast<const T*>(lv.f[l]) +
+               (static_cast<size_t>(b) * H + rec.y0) * row_stride +
+               static_cast<size_t>(rec.x0) * C;
+  const int n_cg = C / V;                      // channel groups
+  const int lanes = min(n_cg, kThreads);
+  const int groups = kThreads / lanes;         // work-item groups
+  const int g = tid / lanes;
+  if (g >= groups) return;
+  const int npb = (P + PB - 1) / PB;
+  for (int cg = tid % lanes; cg < n_cg; cg += lanes) {
+    const int c = cg * V;
+    for (int item = g; item < P * npb; item += groups) {
+      const int q = item % P;
+      const int p0 = (item / P) * PB;
+      // the window rows any output row of the block reads
+      int y_first = kSpanY, y_last = -1;
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        const int p = p0 + j;
+        if ((!EXACT || PB != PMAX) && p >= P) break;
+        if (ylo[p] <= yhi[p]) {
+          y_first = min(y_first, ylo[p]);
+          y_last = max(y_last, yhi[p]);
+        }
+      }
+      float acc[PB][V];
+#pragma unroll
+      for (int j = 0; j < PB; ++j)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[j][v] = 0.f;
+      const int x0 = xlo[q], x1 = xhi[q];
+      for (int y = y_first; y <= y_last; ++y) {
+        // H[q] = sum_x Rx[q, x] F[y, x], once per window row
+        const T* row = f + y * row_stride + c;
+        float h[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) h[v] = 0.f;
+#pragma unroll (Shape<PMAX>::x_unroll)
+        for (int x = x0; x <= x1; ++x) {
+          const float wx = srx[q][x];
+          float fv[V];
+          Vec<T>::load(row + static_cast<size_t>(x) * C, fv);
+#pragma unroll
+          for (int v = 0; v < V; ++v) h[v] += wx * fv[v];
+        }
+        // into every output row whose support holds y
+#pragma unroll
+        for (int j = 0; j < PB; ++j) {
+          const int p = p0 + j;
+          if ((!EXACT || PB != PMAX) && p >= P) break;
+          const float wy = sry[p][y];
+          if (wy == 0.f) continue;
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[j][v] += wy * h[v];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        const int p = p0 + j;
+        if ((!EXACT || PB != PMAX) && p >= P) break;
+        float* op = o_roi + (static_cast<size_t>(p) * P + q) * C + c;
+#pragma unroll
+        for (int v = 0; v < V; v += 4) {
+          *reinterpret_cast<float4*>(op + v) =
+              make_float4(acc[j][v], acc[j][v + 1], acc[j][v + 2], acc[j][v + 3]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int PMAX, bool EXACT>
+void launch(int T_rois, cudaStream_t s, const Levels& lv, const Opts& o, int C,
+            const float* boxes, const bool* valid, int n, int* record, float* out) {
+  roi_align_fwd_kernel<T, PMAX, EXACT><<<dim3(T_rois), dim3(Shape<PMAX>::threads), 0, s>>>(
+      lv, o, C, boxes, valid, n, record, out);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-roi_align_fwd_kernel(Levels lv, int C, int P,
-                     const int* __restrict__ level, const int* __restrict__ bid,
-                     const int* __restrict__ y0s, const int* __restrict__ x0s,
-                     const int* __restrict__ ntys, const int* __restrict__ ntxs,
-                     const float* __restrict__ ry, const float* __restrict__ rx,
-                     float* __restrict__ out) {
-  __shared__ float sry[kMaxP][kSpanY];
-  __shared__ float srx[kMaxP][kSpanX];
-  __shared__ int ylo[kMaxP], yhi[kMaxP], xlo[kMaxP], xhi[kMaxP];
-
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nty = ntys[r];
-  float* o = out + static_cast<size_t>(r) * P * P * C;
-  if (nty == 0) {
-    for (int i = tid; i < P * P * C; i += blockDim.x) o[i] = 0.f;
-    return;
-  }
-  const int l = level[r];
-  const int b = bid[r];
-  const int y0 = y0s[r];
-  const int x0 = x0s[r];
-  const int H = lv.h[l];
-  const int W = lv.w[l];
-  // window rows/cols the ROI may read: its spanned tiles, inside the map
-  const int ylim = min(nty * kTileY, H - y0);
-  const int xlim = min(ntxs[r] * kTileX, W - x0);
-
-  const float* ryr = ry + static_cast<size_t>(r) * P * kSpanY;
-  const float* rxr = rx + static_cast<size_t>(r) * P * kSpanX;
-  for (int i = tid; i < P * kSpanY; i += blockDim.x) {
-    const int y = i % kSpanY;
-    sry[i / kSpanY][y] = y < ylim ? ryr[i] : 0.f;
-  }
-  for (int i = tid; i < P * kSpanX; i += blockDim.x) {
-    const int x = i % kSpanX;
-    srx[i / kSpanX][x] = x < xlim ? rxr[i] : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * P; i += blockDim.x) {
-    const bool is_y = i < P;
-    const int row = is_y ? i : i - P;
-    const int n = is_y ? kSpanY : kSpanX;
-    const float* wts = is_y ? &sry[row][0] : &srx[row][0];
-    int lo = n, hi = -1;
-    for (int k = 0; k < n; ++k) {
-      if (wts[k] != 0.f) {
-        lo = min(lo, k);
-        hi = k;
-      }
-    }
-    (is_y ? ylo : xlo)[row] = lo;
-    (is_y ? yhi : xhi)[row] = hi;
-  }
-  __syncthreads();
-
-  const size_t row_stride = static_cast<size_t>(W) * C;
-  const T* f = static_cast<const T*>(lv.f[l]) +
-               (static_cast<size_t>(b) * H + y0) * row_stride +
-               static_cast<size_t>(x0) * C;
-  for (int c = tid; c < C; c += blockDim.x) {
-    for (int p = 0; p < P; ++p) {
-      for (int q = 0; q < P; ++q) {
-        float acc = 0.f;
-        for (int y = ylo[p]; y <= yhi[p]; ++y) {
-          const float wy = sry[p][y];
-          if (wy == 0.f) continue;
-          const T* row = f + y * row_stride + c;
-          float s = 0.f;
-          for (int x = xlo[q]; x <= xhi[q]; ++x) {
-            s += srx[q][x] * to_float(row[static_cast<size_t>(x) * C]);
-          }
-          acc += wy * s;
-        }
-        o[(static_cast<size_t>(p) * P + q) * C + c] = acc;
-      }
-    }
+void dispatch(int T_rois, cudaStream_t s, const Levels& lv, const Opts& o, int C,
+              const float* boxes, const bool* valid, int n, int* record, float* out) {
+  if (o.P == 7) {
+    launch<T, 7, true>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
+  } else if (o.P == 14) {
+    launch<T, 14, true>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
+  } else {
+    launch<T, kMaxP, false>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
   }
 }
 
@@ -144,35 +245,42 @@ roi_align_fwd_kernel(Levels lv, int C, int P,
 
 // Returns the CUDA error of the launch (0 on success).  Pointers are device
 // pointers; `stream` is a cudaStream_t.  dtype: 0 float32, 1 bfloat16.
+// boxes (T, 4) float32, valid (T,) bool or null, record (T, 5) int32 and
+// out (T, P, P, C) float32 are written; T = images x n_per_image.  C must
+// be a multiple of 8 (bfloat16) or 4 (float32), every pointer 16-byte
+// aligned; scale_l = 1 / stride_l as float32.
 extern "C" int roi_align_fwd(const void* f2, const void* f3, const void* f4,
                              const void* f5, int dtype, int h2, int w2, int h3,
-                             int w3, int h4, int w4, int h5, int w5, int C,
-                             int P, const void* level, const void* bid,
-                             const void* y0, const void* x0, const void* nty,
-                             const void* ntx, const void* ry, const void* rx,
-                             void* out, int T, void* stream) {
+                             int w3, int h4, int w4, int h5, int w5, float s2,
+                             float s3, float s4, float s5, int C, int P,
+                             int sampling_ratio, int aligned, int min_level,
+                             const void* boxes, const void* valid, int n_per_image,
+                             void* record, void* out, int T, void* stream) {
   if (T <= 0) return 0;
-  if (P < 1 || P > kMaxP || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = dtype == 1 ? 8 : 4;
+  if (P < 1 || P > kMaxP || C < vec || C % vec != 0 || n_per_image < 1 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Levels lv;
   lv.f[0] = f2; lv.f[1] = f3; lv.f[2] = f4; lv.f[3] = f5;
-  lv.h[0] = h2; lv.h[1] = h3; lv.h[2] = h4; lv.h[3] = h5;
-  lv.w[0] = w2; lv.w[1] = w3; lv.w[2] = w4; lv.w[3] = w5;
-  const dim3 grid(T), block(kThreads);
+  Opts o;
+  o.P = P;
+  o.sampling_ratio = sampling_ratio;
+  o.aligned = aligned;
+  o.min_level = min_level;
+  o.scale[0] = s2; o.scale[1] = s3; o.scale[2] = s4; o.scale[3] = s5;
+  o.h[0] = h2; o.h[1] = h3; o.h[2] = h4; o.h[3] = h5;
+  o.w[0] = w2; o.w[1] = w3; o.w[2] = w4; o.w[3] = w5;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ip[6] = {static_cast<const int*>(level), static_cast<const int*>(bid),
-                      static_cast<const int*>(y0), static_cast<const int*>(x0),
-                      static_cast<const int*>(nty), static_cast<const int*>(ntx)};
-  const float* ryp = static_cast<const float*>(ry);
-  const float* rxp = static_cast<const float*>(rx);
+  const float* bp = static_cast<const float*>(boxes);
+  const bool* vp = static_cast<const bool*>(valid);
+  int* rp = static_cast<int*>(record);
   float* op = static_cast<float*>(out);
   if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, block, 0, s>>>(
-        lv, C, P, ip[0], ip[1], ip[2], ip[3], ip[4], ip[5], ryp, rxp, op);
-  } else if (dtype == 1) {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        lv, C, P, ip[0], ip[1], ip[2], ip[3], ip[4], ip[5], ryp, rxp, op);
+    dispatch<float>(T, s, lv, o, C, bp, vp, n_per_image, rp, op);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    dispatch<__nv_bfloat16>(T, s, lv, o, C, bp, vp, n_per_image, rp, op);
   }
   return static_cast<int>(cudaGetLastError());
 }

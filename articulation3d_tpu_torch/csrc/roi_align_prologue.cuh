@@ -1,0 +1,208 @@
+// Per-ROI prologue of the multilevel ROIAlign kernels, shared by
+// roi_align_fwd.cu (K1) and roi_align_adj.cu (K2), so that both build
+// bit-identical weights and stay an exact linear map and its transpose.
+//
+// It is the device form of `ops/roi_align_cuda.py::_prepare` (the Pallas
+// prologue, articulation3d_tpu/ops/roi_align_pallas.py:120-171, 273-375):
+//   * detectron2's sqrt-area level (canonical size 224, level 4, eps 1e-8);
+//   * the window-overflow bump of `pallas_level_idx`;
+//   * the sample start, bin size and adaptive sample count (capped at 4);
+//   * the window origin y0/x0 (x floored to a multiple of 8, both capped at
+//     the padded extents), the tile counts nty/ntx (nty = 0: invalid ROI);
+//   * the separable weight rows Ry (P x 64) and Rx (P x 80): bilinear
+//     corners, zero outside the map, the defensive window-edge snap, 1/n,
+//     and the tiles and map cells the ROI does not span cut to zero.
+//
+// The integers must equal what torch computes on the card, so every float
+// operation is rounded on its own, in torch's order (no contraction into
+// FMAs: __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn), and a division by a
+// Python scalar is a multiplication by its float32 reciprocal, as torch's
+// CUDA `div` does for a CPU scalar divisor.  `ops/roi_align_cuda.py::
+// _roi_record` is the same arithmetic in torch, for the tests.
+//
+// The min and max of an ROI's samples are taken in closed form: the
+// rounded coordinates are monotone in (p, s), so the extremes are the
+// first and last sample (swapped for a negative bin).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace roi_prologue {
+
+constexpr int kTileY = 32;
+constexpr int kTileX = 40;
+constexpr int kSpanY = 2 * kTileY;
+constexpr int kSpanX = 2 * kTileX;
+constexpr int kMaxP = 16;
+constexpr int kAdaptiveCap = 4;
+constexpr int kRecord = 5;   // level, y0, x0, nty, ntx (int32 per ROI)
+
+// What the kernels need to know of the options and the pyramid.
+struct Opts {
+  int P;
+  int sampling_ratio;
+  int aligned;
+  int min_level;
+  float scale[4];   // 1 / stride, as float32 (the torch table's values)
+  int h[4];         // real level extents
+  int w[4];
+};
+
+// One axis of an ROI at one level: first sample position, bin size and
+// sample count (`_sample_coords`).
+struct Axis {
+  float start;
+  float bin;
+  int n;
+};
+
+// The prologue's result for one ROI.
+struct Record {
+  int level, y0, x0, nty, ntx;
+};
+
+__device__ __forceinline__ float recip(float d) { return __fdiv_rn(1.0f, d); }
+
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  long long q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ Axis axis_params(float lo, float hi, float scale,
+                                            const Opts& o) {
+  const float off = o.aligned ? 0.5f : 0.0f;
+  const float a = __fsub_rn(__fmul_rn(lo, scale), off);
+  const float b = __fsub_rn(__fmul_rn(hi, scale), off);
+  float len = __fsub_rn(b, a);
+  if (!o.aligned) len = fmaxf(len, 1.0f);
+  Axis ax;
+  ax.start = a;
+  ax.bin = __fmul_rn(len, recip(static_cast<float>(o.P)));
+  ax.n = o.sampling_ratio > 0
+             ? o.sampling_ratio
+             : min(max(static_cast<int>(ceilf(ax.bin)), 1), kAdaptiveCap);
+  return ax;
+}
+
+// start + (p + (s + 0.5) / n) * bin
+__device__ __forceinline__ float sample(const Axis& ax, int p, int s) {
+  const float frac = __fdiv_rn(static_cast<float>(s) + 0.5f, static_cast<float>(ax.n));
+  return __fadd_rn(ax.start, __fmul_rn(__fadd_rn(static_cast<float>(p), frac), ax.bin));
+}
+
+__device__ __forceinline__ void extent(const Axis& ax, int P, float* lo, float* hi) {
+  const float first = sample(ax, 0, 0);
+  const float last = sample(ax, P - 1, ax.n - 1);
+  *lo = ax.bin >= 0.0f ? first : last;
+  *hi = ax.bin >= 0.0f ? last : first;
+}
+
+// detectron2 assign_boxes_to_levels, 0-based
+__device__ __forceinline__ int base_level(const float* box, const Opts& o) {
+  const float bw = fmaxf(__fsub_rn(box[2], box[0]), 0.0f);
+  const float bh = fmaxf(__fsub_rn(box[3], box[1]), 0.0f);
+  const float t = __fadd_rn(__fmul_rn(__fsqrt_rn(__fmul_rn(bw, bh)), recip(224.0f)), 1e-8f);
+  float lvl = floorf(__fadd_rn(4.0f, log2f(t)));
+  lvl = fminf(fmaxf(lvl, static_cast<float>(o.min_level)),
+              static_cast<float>(o.min_level + 3));
+  return static_cast<int>(lvl) - o.min_level;
+}
+
+// The level each ROI is pooled from: the base level plus the window bump.
+__device__ __forceinline__ int pooled_level(const float* box, const Opts& o) {
+  const int base = base_level(box, o);
+  const Axis ay = axis_params(box[1], box[3], o.scale[base], o);
+  const Axis ax = axis_params(box[0], box[2], o.scale[base], o);
+  float ymin, ymax, xmin, xmax;
+  extent(ay, o.P, &ymin, &ymax);
+  extent(ax, o.P, &xmin, &xmax);
+  const float need_y = __fsub_rn(__fadd_rn(floorf(ymax), 2.0f),
+                                 fmaxf(__fsub_rn(floorf(ymin), 1.0f), 0.0f));
+  const float x0_al =
+      __fmul_rn(floorf(__fmul_rn(fmaxf(__fsub_rn(floorf(xmin), 1.0f), 0.0f), 0.125f)), 8.0f);
+  const float need_x = __fsub_rn(__fadd_rn(floorf(xmax), 2.0f), x0_al);
+  const bool overflow = need_y > static_cast<float>(kSpanY) ||
+                        need_x > static_cast<float>(kSpanX);
+  if (!overflow) return base;
+  const float over =
+      fmaxf(__fmul_rn(__fsub_rn(ymax, ymin), recip(static_cast<float>(kSpanY - 4))),
+            __fmul_rn(__fsub_rn(xmax, xmin), recip(static_cast<float>(kSpanX - 11))));
+  const int b_req = static_cast<int>(ceilf(log2f(fmaxf(over, 1.0f))));
+  return min(base + max(b_req, 1), 3);
+}
+
+// The record of one ROI, and its two axes at the pooled level.
+__device__ __forceinline__ Record roi_record(const float* box, bool valid, const Opts& o,
+                                             Axis* ay_out, Axis* ax_out) {
+  Record rec;
+  rec.level = pooled_level(box, o);
+  const int l = rec.level;
+  const Axis ay = axis_params(box[1], box[3], o.scale[l], o);
+  const Axis ax = axis_params(box[0], box[2], o.scale[l], o);
+  float ymin, ymax, xmin, xmax;
+  extent(ay, o.P, &ymin, &ymax);
+  extent(ax, o.P, &xmin, &xmax);
+  const long long hp = max(o.h[l], kSpanY);
+  const long long wp = (max(o.w[l], kSpanX) + 7) / 8 * 8;
+  long long y0 = max(static_cast<long long>(floorf(ymin)) - 1, 0LL);
+  long long x0 = max(static_cast<long long>(floorf(xmin)) - 1, 0LL);
+  x0 = floor_div(x0, 8) * 8;
+  y0 = min(y0, hp - kSpanY);
+  x0 = min(x0, wp - kSpanX);
+  const long long need_y = static_cast<long long>(floorf(ymax)) + 2 - y0;
+  const long long need_x = static_cast<long long>(floorf(xmax)) + 2 - x0;
+  const long long nty = min(max(floor_div(need_y + kTileY - 1, kTileY), 1LL), 2LL);
+  const long long ntx = min(max(floor_div(need_x + kTileX - 1, kTileX), 1LL), 2LL);
+  rec.y0 = static_cast<int>(y0);
+  rec.x0 = static_cast<int>(x0);
+  rec.nty = valid ? static_cast<int>(nty) : 0;
+  rec.ntx = static_cast<int>(ntx);
+  *ay_out = ay;
+  *ax_out = ax;
+  return rec;
+}
+
+// Row p of one axis's separable weights (`_separable_weights` followed by
+// the tile predicate): row[0, win) relative to the window origin, zeroed by
+// the caller; entries at or beyond `lim` (the spanned tiles, the real map)
+// are cut to zero.  Only the entries the row's samples touch are visited.
+// Returns the first and last non-zero entry (lo > hi when the row is all
+// zero).
+__device__ __forceinline__ void build_row(float* row, const Axis& ax, int p, int size,
+                                          int origin, int win, int lim, int* lo_out,
+                                          int* hi_out) {
+  const float hf = static_cast<float>(size);
+  int first = win, last = -1;
+  for (int s = 0; s < ax.n; ++s) {
+    const float c = sample(ax, p, s);
+    const bool oor = c < -1.0f || c > hf;
+    float y = fmaxf(c, 0.0f);
+    const long long yi = static_cast<long long>(y);
+    const int y_low = static_cast<int>(min(yi, static_cast<long long>(size - 1)));
+    const int y_high = min(y_low + 1, size - 1);
+    if (yi >= size - 1) y = static_cast<float>(y_low);
+    const float ly = __fsub_rn(y, static_cast<float>(y_low));
+    const float hy = __fsub_rn(1.0f, ly);
+    const int rl = min(max(y_low - origin, 0), win - 1);
+    const int rh = min(max(y_high - origin, 0), win - 1);
+    row[rl] = __fadd_rn(row[rl], oor ? 0.0f : hy);
+    row[rh] = __fadd_rn(row[rh], oor ? 0.0f : ly);
+    first = min(first, rl);
+    last = max(last, rh);
+  }
+  const float n = static_cast<float>(max(ax.n, 1));
+  int lo = win, hi = -1;
+  for (int k = first; k <= last; ++k) {
+    const float v = k < lim ? __fdiv_rn(row[k], n) : 0.0f;
+    row[k] = v;
+    if (v != 0.0f) {
+      lo = min(lo, k);
+      hi = k;
+    }
+  }
+  *lo_out = lo;
+  *hi_out = hi;
+}
+
+}  // namespace roi_prologue

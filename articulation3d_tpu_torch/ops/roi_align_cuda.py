@@ -10,14 +10,18 @@ Counterpart of `articulation3d_tpu/ops/roi_align_pallas.py`.  It holds:
     against the padded level extents, the tile counts nty/ntx, and the
     per-ROI separable weights Ry (P, 64) and Rx (P, 80) that fold in V1/V2
     offsets, the adaptive sample count capped at 4, bilinear corners, zeros
-    outside the map, the defensive edge clamp and 1/n averaging;
+    outside the map, the defensive edge clamp and 1/n averaging.  It feeds
+    the plain versions;
+  * `_roi_record`, the same per-ROI integers as the kernels' own prologue
+    (`csrc/roi_align_prologue.cuh`) computes them, for the tests;
   * K1, the forward: the wrapper `multilevel_roi_align_cuda`, which
-    launches `csrc/roi_align_fwd.cu` for CUDA tensors, and its plain
-    version `multilevel_roi_align_separable`;
+    launches `csrc/roi_align_fwd.cu` (prologue fused in: boxes in, pooled
+    features and the int32 record (level, y0, x0, nty, ntx) out) for CUDA
+    tensors, and its plain version `multilevel_roi_align_separable`;
   * K2, the adjoint with respect to the features: the wrapper
     `multilevel_roi_align_adjoint_cuda`, which launches
-    `csrc/roi_align_adj.cu`, and its plain version
-    `multilevel_roi_align_adjoint_separable`;
+    `csrc/roi_align_adj.cu` from the boxes and K1's record, and its plain
+    version `multilevel_roi_align_adjoint_separable`;
   * K3, `multilevel_roi_align_train`: a `torch.autograd.Function` whose
     forward is K1 and whose backward is K2 (the JAX `_train_pool`
     custom VJP), or the gather formulation under torch autograd.
@@ -26,11 +30,11 @@ Each wrapper takes its plain version for CPU tensors only; the tests and
 `chip_smoke.py` hold the kernels against the plain versions.
 
 The 64x80 window and the 8-aligned x origin are kept in the prologue though
-the CUDA kernel does no DMA: they decide which level and which weights an
+the CUDA kernels do no DMA: they decide which level and which weights an
 ROI beyond the window contract gets (roi_align_pallas.py docstring), so the
 port pools exactly what the Pallas kernel pooled.  The TPU's launch
 chunking, ROI groups and padded copies of p3-p5 do not carry over: the
-kernel reads the unpadded maps and skips cells at or beyond the real level
+kernels read the unpadded maps and skip cells at or beyond the real level
 extent, where the padded Pallas window holds zeros.
 
 Layout: features are channels-last (B, H_l, W_l, C), as in the JAX package.
@@ -42,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -49,14 +54,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .roi_align import _sample_coords, assign_boxes_to_levels, multilevel_roi_align
+from .roi_align import (ADAPTIVE_CAP, _sample_coords, assign_boxes_to_levels,
+                        multilevel_roi_align)
 
 TILE_Y = 32   # window rows per tile
 TILE_X = 40   # window cols per tile
 N_TILES = 2   # tiles per axis -> 64 x 80 cell window
 SPAN_Y = TILE_Y * N_TILES
 SPAN_X = TILE_X * N_TILES
-MAX_P = 16    # output sizes the kernel's shared-memory arrays hold
+MAX_P = 16    # output sizes the kernels' shared-memory arrays hold
+RECORD = ("levels", "y0", "x0", "nty", "ntx")   # the (T, 5) record's columns
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
@@ -303,6 +310,98 @@ def _predicated_weights(pr: dict):
     return ry, rx
 
 
+def _record_of(pr: dict) -> torch.Tensor:
+    """The (T, 5) int32 record (level, y0, x0, nty, ntx) of a `_prepare`
+    result."""
+    return torch.stack([pr[k] for k in RECORD], dim=1).to(torch.int32)
+
+
+def _roi_record(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
+                strides: Sequence[int], output_size: int, sampling_ratio: int,
+                aligned: bool, min_level: int = 2,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-ROI record (level, y0, x0, nty, ntx) as K1's fused prologue
+    (`csrc/roi_align_prologue.cuh`) computes it: (T, 5) int32.
+
+    The torch twin of the device code, operation for operation: it works
+    per ROI from the sample start, bin size and sample count, takes an
+    axis's extreme samples in closed form (the first and last sample,
+    swapped for a negative bin) instead of reducing (T, P, S) coordinates,
+    and divides by a constant as torch's CUDA `div` does for a Python
+    scalar, by multiplying with its float32 reciprocal.  `_prepare` gives
+    the same integers; the tests and `chip_smoke.py` hold the three
+    (`_prepare`, this, the kernel) against each other.
+    """
+    p = output_size
+    dev = boxes.device
+    fb = boxes.reshape(-1, 4).to(torch.float32)
+    n_levels = len(level_shapes)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32).to(dev)
+
+    def recip(d):
+        return (torch.tensor(1.0, dtype=torch.float32)
+                / torch.tensor(float(d), dtype=torch.float32)).to(dev)
+
+    area = (fb[:, 2] - fb[:, 0]).clamp(min=0) * (fb[:, 3] - fb[:, 1]).clamp(min=0)
+    t = torch.sqrt(area) * recip(224.0) + f32(1e-8)
+    base = (torch.floor(f32(4.0) + torch.log2(t))
+            .clamp(min_level, min_level + n_levels - 1).to(torch.int64) - min_level)
+
+    scale_table = f32([1.0 / s for s in strides])
+    off = f32(0.5 if aligned else 0.0)
+    inv_p = recip(p)
+
+    def extent(lo, hi, scale):
+        start = lo * scale - off
+        length = (hi * scale - off) - start
+        if not aligned:
+            length = length.clamp(min=1.0)
+        bin_sz = length * inv_p
+        if sampling_ratio > 0:
+            n = torch.full_like(start, float(sampling_ratio))
+        else:
+            n = torch.ceil(bin_sz).to(torch.int32).clamp(1, ADAPTIVE_CAP).to(torch.float32)
+        first = start + (f32(0.0) + f32(0.5) / n) * bin_sz
+        last = start + (f32(float(p - 1)) + ((n - 1.0) + f32(0.5)) / n) * bin_sz
+        pos = bin_sz >= 0
+        return torch.where(pos, first, last), torch.where(pos, last, first)
+
+    def extents(levels):
+        scale = scale_table[levels]
+        return (*extent(fb[:, 1], fb[:, 3], scale), *extent(fb[:, 0], fb[:, 2], scale))
+
+    # the window bump (`pallas_level_idx`)
+    y_min, y_max, x_min, x_max = extents(base)
+    need_y = (torch.floor(y_max) + f32(2.0)) - (torch.floor(y_min) - f32(1.0)).clamp(min=0.0)
+    x0_al = torch.floor((torch.floor(x_min) - f32(1.0)).clamp(min=0.0) * f32(0.125)) * f32(8.0)
+    need_x = (torch.floor(x_max) + f32(2.0)) - x0_al
+    overflow = (need_y > SPAN_Y) | (need_x > SPAN_X)
+    over = torch.maximum((y_max - y_min) * recip(SPAN_Y - 4),
+                         (x_max - x_min) * recip(SPAN_X - 11))
+    b_req = torch.ceil(torch.log2(over.clamp(min=1.0))).to(torch.int64)
+    levels = torch.where(overflow, (base + b_req.clamp(min=1)).clamp(max=n_levels - 1), base)
+
+    # window origin and tile counts at the pooled level (`_prepare`)
+    y_min, y_max, x_min, x_max = extents(levels)
+    hp = [max(int(s[1]), SPAN_Y) for s in level_shapes]
+    wp = [(max(int(s[2]), SPAN_X) + 7) // 8 * 8 for s in level_shapes]
+    as_t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+    y0 = (torch.floor(y_min).to(torch.int64) - 1).clamp(min=0)
+    x0 = (torch.floor(x_min).to(torch.int64) - 1).clamp(min=0)
+    x0 = torch.div(x0, 8, rounding_mode="floor") * 8
+    y0 = torch.minimum(y0, as_t([h - SPAN_Y for h in hp])[levels])
+    x0 = torch.minimum(x0, as_t([w - SPAN_X for w in wp])[levels])
+    need_y = torch.floor(y_max).to(torch.int64) + 2 - y0
+    need_x = torch.floor(x_max).to(torch.int64) + 2 - x0
+    nty = torch.div(need_y + TILE_Y - 1, TILE_Y, rounding_mode="floor").clamp(1, N_TILES)
+    ntx = torch.div(need_x + TILE_X - 1, TILE_X, rounding_mode="floor").clamp(1, N_TILES)
+    if valid is not None:
+        nty = torch.where(valid.reshape(-1), nty, torch.zeros_like(nty))
+    return torch.stack([levels, y0, x0, nty, ntx], dim=1).to(torch.int32)
+
+
 # --------------------------------------------------------------------------- #
 # the kernels: build, bind, launch
 # --------------------------------------------------------------------------- #
@@ -321,13 +420,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _source_files(src: str) -> List[str]:
+    """A source and every file of `csrc/` it includes, directly or not."""
+    files, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        with open(path) as f:
+            todo += [os.path.join(os.path.dirname(path), m)
+                     for m in re.findall(r'^#include "([^"]+)"', f.read(), re.M)]
+    return files
+
+
 def _lib_path(name: str) -> Tuple[str, str]:
     """(source, shared library) of one kernel; the library's name carries
-    a digest of the source and the flags."""
+    a digest of the source, the headers it includes and the flags."""
     src = os.path.join(_CSRC, _SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in _source_files(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build_kernels(names: Sequence[str] = tuple(_SOURCES),
@@ -361,18 +476,20 @@ def build_kernels(names: Sequence[str] = tuple(_SOURCES),
     return {name: _lib_path(name)[1] for name in names}
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_OPTS = [_F, _F, _F, _F,                                  # 1/stride per level
+         _I, _I, _I, _I, _I]                              # C, P, ratio, aligned, min_level
 _ARGTYPES = {
     "roi_align_fwd": [_VP, _VP, _VP, _VP, _I,             # f2..f5, dtype
                       _I, _I, _I, _I, _I, _I, _I, _I,     # h2, w2 .. h5, w5
-                      _I, _I,                             # C, P
-                      _VP, _VP, _VP, _VP, _VP, _VP,       # level bid y0 x0 nty ntx
-                      _VP, _VP, _VP, _I, _VP],            # ry rx out T stream
+                      *_OPTS,
+                      _VP, _VP, _I,                       # boxes, valid, N
+                      _VP, _VP, _I, _VP],                 # record, out, T, stream
     "roi_align_adj": [_VP, _VP, _VP, _VP,                 # d2..d5 (float32)
                       _I, _I, _I, _I, _I, _I, _I, _I,     # h2, w2 .. h5, w5
-                      _I, _I,                             # C, P
-                      _VP, _VP, _VP, _VP, _VP, _VP,       # level bid y0 x0 nty ntx
-                      _VP, _VP, _VP, _I, _VP],            # ry rx g T stream
+                      *_OPTS,
+                      _VP, _VP, _I,                       # boxes, record, N
+                      _VP, _I, _VP],                      # g, T, stream
 }
 
 
@@ -387,7 +504,7 @@ def _load(name: str = "roi_align_fwd"):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PR_KEYS = ("levels", "batch_ids", "y0", "x0", "nty", "ntx", "ry", "rx")
+_VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels per 16-byte load
 
 
 def _hw(shapes: Sequence[Sequence[int]]) -> List[int]:
@@ -397,33 +514,65 @@ def _hw(shapes: Sequence[Sequence[int]]) -> List[int]:
     return hw
 
 
-def _launch(features: Sequence[torch.Tensor], pr: dict, out: torch.Tensor,
-            p: int) -> None:
+def _opt_args(opts: dict, c: int) -> list:
+    """The kernels' option arguments: 1/stride per level as float32 (the
+    values of the prologue's scale table), C, P, the ratio, aligned and
+    the min level."""
+    scales = torch.tensor([1.0 / s for s in opts["strides"]], dtype=torch.float32).tolist()
+    return [*scales, int(c), int(opts["output_size"]), int(opts["sampling_ratio"]),
+            int(bool(opts["aligned"])), int(opts.get("min_level", 2))]
+
+
+def _launch(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+            valid: Optional[torch.Tensor], opts: dict, record: torch.Tensor,
+            out: torch.Tensor) -> None:
+    """K1 on checked inputs: boxes (B, N, 4) float32, valid (B, N) bool or
+    None; writes record (T, 5) int32 and out (T, P, P, C) float32."""
     lib = _load("roi_align_fwd")
-    total = int(pr["levels"].numel())
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.roi_align_fwd(
         *[f.data_ptr() for f in features], _DTYPES[features[0].dtype],
-        *_hw([f.shape for f in features]), int(features[0].shape[-1]), p,
-        *[pr[k].data_ptr() for k in _PR_KEYS], out.data_ptr(), total, stream)
+        *_hw([f.shape for f in features]), *_opt_args(opts, features[0].shape[-1]),
+        boxes.data_ptr(), None if valid is None else valid.data_ptr(),
+        int(boxes.shape[1]), record.data_ptr(), out.data_ptr(), int(record.shape[0]),
+        stream)
     if err != 0:
         raise RuntimeError(f"roi_align_fwd launch failed: CUDA error {err}")
 
 
-def _launch_adj(g: torch.Tensor, pr: dict, grads: Sequence[torch.Tensor]) -> None:
+def _launch_adj(g: torch.Tensor, boxes: torch.Tensor, record: torch.Tensor,
+                opts: dict, grads: Sequence[torch.Tensor]) -> None:
+    """K2 on checked inputs: adds into the zeroed float32 level gradients."""
     lib = _load("roi_align_adj")
-    total = int(pr["levels"].numel())
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.roi_align_adj(
         *[d.data_ptr() for d in grads], *_hw([d.shape for d in grads]),
-        int(g.shape[-1]), int(g.shape[-2]),
-        *[pr[k].data_ptr() for k in _PR_KEYS], g.data_ptr(), total, stream)
+        *_opt_args(opts, g.shape[-1]), boxes.data_ptr(), record.data_ptr(),
+        int(boxes.shape[1]), g.data_ptr(), int(record.shape[0]), stream)
     if err != 0:
         raise RuntimeError(f"roi_align_adj launch failed: CUDA error {err}")
 
 
-def _check_features(features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                    output_size: int) -> None:
+def _aligned16(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def _kernel_boxes(boxes: torch.Tensor, valid: Optional[torch.Tensor],
+                  output_size: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Boxes as the kernels read them, float32 and contiguous (no copy when
+    they already are), and `valid` contiguous."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError("boxes must be (B, N, 4)")
+    if valid is not None and (valid.dtype != torch.bool or valid.shape != boxes.shape[:2]
+                              or valid.device != boxes.device):
+        raise TypeError("valid must be a bool (B, N) tensor on the boxes' device")
+    if not 1 <= output_size <= MAX_P:
+        raise ValueError(f"output_size must be in [1, {MAX_P}]")
+    return (boxes.to(torch.float32).contiguous(),
+            None if valid is None else valid.contiguous())
+
+
+def _check_features(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None:
     if len(features) != 4:
         raise ValueError("the kernel pools exactly four levels (p2..p5)")
     dtype = features[0].dtype
@@ -433,23 +582,29 @@ def _check_features(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     c = features[0].shape[-1]
     for f in features:
         if (f.device != boxes.device or f.dim() != 4 or f.shape[-1] != c
-                or f.shape[0] != boxes.shape[0] or not f.is_contiguous()):
-            raise ValueError("features must be contiguous (B, H, W, C) "
-                             "tensors on the boxes' device")
-    if not 1 <= output_size <= MAX_P:
-        raise ValueError(f"output_size must be in [1, {MAX_P}]")
+                or f.shape[0] != boxes.shape[0] or not f.is_contiguous()
+                or not _aligned16(f)):
+            raise ValueError("features must be contiguous, 16-byte aligned "
+                             "(B, H, W, C) tensors on the boxes' device")
+    if c % _VEC[dtype] != 0:
+        raise ValueError(f"C must be a multiple of {_VEC[dtype]} for {dtype}, got {c}")
 
 
-def _forward_kernel(features: Sequence[torch.Tensor], pr: dict,
-                    p: int) -> torch.Tensor:
-    """K1 on a `_prepare` result: (T, P, P, C) float32; counts the launch."""
-    total = int(pr["levels"].numel())
+def _forward_kernel(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                    valid: Optional[torch.Tensor],
+                    opts: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1, prologue fused in: ((T, P, P, C) float32, (T, 5) int32 record);
+    counts the launch."""
+    _check_features(features, boxes)
+    boxes, valid = _kernel_boxes(boxes, valid, opts["output_size"])
+    total, p = boxes.shape[0] * boxes.shape[1], opts["output_size"]
     out = torch.empty((total, p, p, features[0].shape[-1]), dtype=torch.float32,
-                      device=features[0].device)
+                      device=boxes.device)
+    record = torch.empty((total, len(RECORD)), dtype=torch.int32, device=boxes.device)
     if total:
-        _launch(features, pr, out, p)
+        _launch(features, boxes, valid, opts, record, out)
         multilevel_roi_align_cuda.launches += 1
-    return out
+    return out, record
 
 
 def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
@@ -459,22 +614,21 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
                               min_level: int = 2,
                               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched FPN ROIAlign: features (B, H_l, W_l, C) x 4 (float32 or
-    bfloat16, channels-last), boxes (B, N, 4), valid (B, N) bool ->
-    (B, N, P, P, C) float32.  Invalid ROIs give zeros and cost no reads.
+    bfloat16, channels-last, C a multiple of 4 or 8), boxes (B, N, 4)
+    float32, valid (B, N) bool -> (B, N, P, P, C) float32.  Invalid ROIs
+    give zeros and cost no reads.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    CUDA tensors launch K1 (one launch, no torch prologue); CPU tensors
+    take the plain version.
     """
     kw = dict(strides=strides, output_size=output_size,
-              sampling_ratio=sampling_ratio, aligned=aligned,
-              min_level=min_level, valid=valid)
+              sampling_ratio=sampling_ratio, aligned=aligned, min_level=min_level)
     if boxes.device.type == "cpu":
-        return multilevel_roi_align_separable(features, boxes, **kw)
+        return multilevel_roi_align_separable(features, boxes, valid=valid, **kw)
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
-    _check_features(features, boxes, output_size)
     bsz, n = boxes.shape[:2]
-    pr = _prepare([f.shape for f in features], boxes, **kw)
-    out = _forward_kernel(features, pr, output_size)
+    out, _ = _forward_kernel(features, boxes, valid, kw)
     return out.reshape(bsz, n, output_size, output_size, -1)
 
 
@@ -483,35 +637,49 @@ multilevel_roi_align_cuda.launches = 0
 
 def multilevel_roi_align_adjoint_cuda(g: torch.Tensor,
                                       feat_shapes: Sequence[Sequence[int]],
-                                      pr: dict) -> List[torch.Tensor]:
+                                      boxes: torch.Tensor, record: torch.Tensor, *,
+                                      strides: Sequence[int], output_size: int,
+                                      sampling_ratio: int, aligned: bool,
+                                      min_level: int = 2) -> List[torch.Tensor]:
     """K2: the gradient of K1 with respect to the features.
 
     g: (T, P, P, C) or (B, N, P, P, C) float32 pooled cotangent;
-    feat_shapes: per level (B, H_l, W_l, C); pr: the forward's `_prepare`
-    result, used as it is (its Ry/Rx carry the window-edge snap, so the
-    pair stays an exact linear map and transpose).  Returns float32
-    (B, H_l, W_l, C) gradients.  CUDA tensors launch `csrc/roi_align_adj.cu`
-    (float32 atomics: the sum order varies between runs); CPU tensors take
-    `multilevel_roi_align_adjoint_separable`.
+    feat_shapes: per level (B, H_l, W_l, C); boxes (B, N, 4) and record
+    (T, 5) int32: the forward's boxes and K1's record (nty = 0 marks an
+    invalid ROI, whose cotangent rows are never read); the options are the
+    forward's.  Returns float32 (B, H_l, W_l, C) gradients.  CUDA tensors
+    launch `csrc/roi_align_adj.cu`, which rebuilds K1's weights from the
+    boxes bit for bit (float32 atomics: the sum order varies between
+    runs); CPU tensors take `multilevel_roi_align_adjoint_separable` on the
+    `_prepare` of the same boxes.
     """
+    kw = dict(strides=strides, output_size=output_size,
+              sampling_ratio=sampling_ratio, aligned=aligned, min_level=min_level)
     if g.device.type == "cpu":
+        pr = _prepare(feat_shapes, boxes, valid=record[:, 3] > 0, **kw)
         return multilevel_roi_align_adjoint_separable(g, feat_shapes, pr)
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
     if len(feat_shapes) != 4:
         raise ValueError("the kernel scatters into exactly four levels (p2..p5)")
     p, c = int(g.shape[-2]), int(g.shape[-1])
-    if g.dtype != torch.float32 or not g.is_contiguous() or g.shape[-3] != p:
-        raise TypeError("g must be a contiguous float32 (..., P, P, C) tensor")
-    if not 1 <= p <= MAX_P:
-        raise ValueError(f"output_size must be in [1, {MAX_P}]")
-    total = int(pr["levels"].numel())
-    if g.numel() != total * p * p * c or any(int(s[-1]) != c for s in feat_shapes):
-        raise ValueError("g does not match the prologue's ROIs or the channels")
+    if (g.dtype != torch.float32 or not g.is_contiguous() or g.shape[-3] != p
+            or not _aligned16(g)):
+        raise TypeError("g must be a contiguous, 16-byte aligned float32 (..., P, P, C) tensor")
+    boxes, _ = _kernel_boxes(boxes, None, output_size)
+    total = boxes.shape[0] * boxes.shape[1]
+    if p != output_size or c % 4 != 0 or g.numel() != total * p * p * c:
+        raise ValueError("g must be (T, P, P, C) for the boxes, with C a multiple of 4")
+    if (record.dtype != torch.int32 or tuple(record.shape) != (total, len(RECORD))
+            or not record.is_contiguous() or record.device != g.device
+            or boxes.device != g.device):
+        raise TypeError("record must be K1's contiguous int32 (T, 5) record on g's device")
+    if any(int(s[-1]) != c or int(s[0]) != boxes.shape[0] for s in feat_shapes):
+        raise ValueError("feat_shapes do not match g's channels or the boxes' batch")
     grads = [torch.zeros((int(s[0]), int(s[1]), int(s[2]), c), dtype=torch.float32,
                          device=g.device) for s in feat_shapes]
     if total:
-        _launch_adj(g, pr, grads)
+        _launch_adj(g, boxes, record, kw, grads)
         multilevel_roi_align_adjoint_cuda.launches += 1
     return grads
 
@@ -525,23 +693,24 @@ multilevel_roi_align_adjoint_cuda.launches = 0
 
 class _TrainPool(torch.autograd.Function):
     """Forward K1 (plain version on the CPU), backward K2; the counterpart
-    of JAX `_train_pool` with `use_pallas=True`.  The prologue is saved for
-    the backward instead of being rebuilt (JAX rebuilds it, the same math).
+    of JAX `_train_pool` with `use_pallas=True`.  The forward saves the
+    boxes, `valid` and the (T, 5) int32 record, and the backward rebuilds
+    the weights from them (JAX rebuilds the whole prologue, the same math).
     Boxes get a zero cotangent and `valid` none (roi_align_pallas.py:837-843).
     """
 
     @staticmethod
     def forward(ctx, boxes, valid, opts, *features):
+        p = opts["output_size"]
         with torch.autocast(boxes.device.type, enabled=False):
-            pr = _prepare([f.shape for f in features], boxes, valid=valid, **opts)
-            p = opts["output_size"]
             if boxes.device.type == "cuda":
-                _check_features(features, boxes, p)
-                out = _forward_kernel(features, pr, p)
+                out, record = _forward_kernel(features, boxes, valid, opts)
             else:
+                pr = _prepare([f.shape for f in features], boxes, valid=valid, **opts)
                 out = _separable_forward(features, pr, p)
-        ctx.save_for_backward(boxes, valid, *[pr[k] for k in _PR_KEYS])
-        ctx.pads = (pr["hp"], pr["wp"])
+                record = _record_of(pr)
+        ctx.save_for_backward(boxes, valid, record)
+        ctx.opts = opts
         ctx.shapes = [tuple(f.shape) for f in features]
         ctx.dtypes = [f.dtype for f in features]
         # invalid ROIs (nty = 0) pool to exact zeros in both versions
@@ -549,12 +718,13 @@ class _TrainPool(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        boxes, valid, *saved = ctx.saved_tensors
-        pr = dict(zip(_PR_KEYS, saved), hp=ctx.pads[0], wp=ctx.pads[1])
+        boxes, valid, record = ctx.saved_tensors
         g = g.to(torch.float32)
-        if valid is not None:
+        if g.device.type == "cpu" and valid is not None:
             g = torch.where(valid[..., None, None, None], g, torch.zeros_like(g))
-        dfeats = multilevel_roi_align_adjoint_cuda(g.contiguous(), ctx.shapes, pr)
+        # on the card K2 skips the invalid rows (nty = 0): g goes in as it is
+        dfeats = multilevel_roi_align_adjoint_cuda(g.contiguous(), ctx.shapes, boxes,
+                                                   record, **ctx.opts)
         return (torch.zeros_like(boxes), None, None,
                 *[d.to(t) for d, t in zip(dfeats, ctx.dtypes)])
 

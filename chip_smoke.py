@@ -15,22 +15,27 @@ non-zero exit):
      pyramid (C = 256, B = 2) for the box (N = 1000, 7x7, V2, ratio 0),
      mask (N = 100, 14x14, V1, ratio 2) and plane (N = 100, 14x14, V1,
      ratio 0) pools, with invalid rows, plus the 5:1 and bumped-level 9:1
-     box sets: K1 in float32 and bfloat16, K2 in float32 with the transpose
-     identity <K1(F), G> = <F, K2(G)> summed in float64;
+     box sets: K1 in float32 and bfloat16, with the record (level, y0, x0,
+     nty, ntx) its fused prologue writes held integer-exactly against
+     torch `_prepare` and `_roi_record` on the card; K2 in float32 from
+     that record, with the transpose identity <K1(F), G> = <F, K2(G)>
+     summed in float64;
   3. the main path: `VideoPipeline` at full width (R50-FPN, 1000
      proposals, 100 detections, mask/plane/axis/depth heads, the shipped
      configs/config.yaml with seeded random weights and score threshold 0)
      on 16 synthetic 480x640 frames in two chunks of 8, with the kernel's
-     launch count, per-chunk wall times and peak memory; then the kernel's
-     time at the main path's own pool inputs beside its plain version and
-     its bound;
+     launch count, per-chunk wall times and peak memory, and no call of
+     the torch prologue `_prepare` on the way; then, at the main path's own
+     pool inputs, K1's record against `_prepare` and its time (wrapper and
+     kernel alone) beside its plain version and its bound;
   4. the kernel path against the plain gather path, whole model, float32;
   5. the training path: `Trainer` on the shipped configs/step1_bbox.yaml at
      full width (R50-FPN, RPN 2000/1000, 512 ROIs per image, ims 16,
      480x640, bf16 trunk) for 2 warm and 20 timed steps on one synthetic
      batch, with K1 and K2 launches per step, the loss curve, peak memory
-     and a profile of one warm step; then K2's time at the path's own box
-     pool inputs beside its plain version and its bound;
+     and a profile of one warm step; then, at the path's own box pool
+     inputs, K1's record against `_prepare`, and K1's and K2's times beside
+     their plain versions and their bounds;
   6. training-path parity: one float32 step with the kernel pooler and one
      with the gather pooler under autograd, losses and the p2 convs'
      gradients compared; then the two poolers' gradients to p2..p5 on the
@@ -139,6 +144,7 @@ def phase_kernel_parity(rac):
                       aligned=aligned, valid=valid)
             got = rac.multilevel_roi_align_cuda(feats, boxes, **kw)
             want = rac.multilevel_roi_align_separable(feats, boxes, **kw)
+            bumped, n_rec = _check_record(rac, feats, boxes, valid, p, sr, aligned)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
@@ -146,9 +152,28 @@ def phase_kernel_parity(rac):
             _log(f"[kernel-parity] {name:22s} {str(dtype)[6:]:8s} P={p:2d} sr={sr} "
                  f"aligned={int(aligned)} rois={boxes.shape[0] * boxes.shape[1]:5d} "
                  f"max_abs_err={err:.3e} max|out|={scale:.3e} tol={tol * scale:.3e} "
-                 f"invalid_rows_zero={zero_ok}")
+                 f"invalid_rows_zero={zero_ok}; record == _prepare == _roi_record on "
+                 f"{n_rec} ROIs ({bumped} from a bumped level)")
             assert np.isfinite(err) and err <= tol * scale, (name, dtype, err)
             assert zero_ok, (name, dtype)
+
+
+def _check_record(rac, feats, boxes, valid, p, sr, aligned):
+    """K1's record (its fused prologue, on the card) against torch
+    `_prepare` and `_roi_record` on the card, integer-exactly; returns
+    (ROIs pooled from a bumped level, ROIs checked)."""
+    import torch
+    opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
+    _, record = rac._forward_kernel(feats, boxes, valid, dict(opts, min_level=2))
+    shapes = [f.shape for f in feats]
+    want = rac._record_of(rac._prepare(shapes, boxes, valid=valid, **opts))
+    twin = rac._roi_record(shapes, boxes, valid=valid, **opts)
+    torch.cuda.synchronize()
+    bad = (record != want).any(1) | (twin != want).any(1)
+    assert not bool(bad.any()), (int(bad.sum()), record[bad][:4].tolist(),
+                                 want[bad][:4].tolist(), twin[bad][:4].tolist())
+    base = rac.assign_boxes_to_levels(boxes.reshape(-1, 4).float()) - 2
+    return int((record[:, 0].long() != base).sum()), int(record.shape[0])
 
 
 def phase_adjoint_parity(rac):
@@ -170,18 +195,17 @@ def phase_adjoint_parity(rac):
                       torch.from_numpy(bx).cuda(), None, 7, 0, True))
     for name, feats, boxes, valid, p, sr, aligned in cases:
         shapes = [f.shape for f in feats]
-        pr = rac._prepare(shapes, boxes, strides=STRIDES, output_size=p,
-                          sampling_ratio=sr, aligned=aligned, valid=valid)
+        opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
+        pr = rac._prepare(shapes, boxes, valid=valid, **opts)
         g = torch.randn((boxes.shape[0] * boxes.shape[1], p, p, 256), generator=gen,
                         device="cuda")
-        got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr)
+        fwd, record = rac._forward_kernel(feats, boxes, valid, dict(opts, min_level=2))
+        got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **opts)
         want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
-        fwd = rac.multilevel_roi_align_cuda(feats, boxes, strides=STRIDES, output_size=p,
-                                            sampling_ratio=sr, aligned=aligned, valid=valid)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         scale = max(float(b.abs().max()) for b in want)
-        lhs = float((fwd.double() * g.reshape(fwd.shape).double()).sum())
+        lhs = float((fwd.double() * g.double()).sum())
         rhs = float(sum((f.double() * d.double()).sum() for f, d in zip(feats, got)))
         rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
         _log(f"[adjoint-parity] {name:22s} float32  P={p:2d} sr={sr} aligned={int(aligned)} "
@@ -303,12 +327,17 @@ def main() -> int:
     frames = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(16)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    prologue_calls = _count_calls(rac, "_prepare")
     rac.multilevel_roi_align_cuda.launches = 0
-    preds = pipe.run(frames, verbose=True)
+    try:
+        preds = pipe.run(frames, verbose=True)
+    finally:
+        prologue_calls.restore()
     launches = rac.multilevel_roi_align_cuda.launches
     _log(f"[main] model dtype {cfg.model.dtype}, pooler {cfg.model.roi_pooler_impl}, "
-         f"batch 8, 16 frames 480x640; kernel launches {launches}; "
-         f"valid ROIs per pool stage {pipe.pool_valid}")
+         f"batch 8, 16 frames 480x640; kernel launches {launches}; torch prologue "
+         f"(_prepare) calls {prologue_calls.n}; valid ROIs per pool stage {pipe.pool_valid}")
+    assert prologue_calls.n == 0, prologue_calls.n
     assert len(preds) == 16 and len(pipe.depths) == 16
     for pr in preds:
         n = len(pr)
@@ -356,24 +385,26 @@ def main() -> int:
          f"{cfg.model.dtype}): {t_perm:.4f} ms ({card})")
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, kernel_ms=0.0)
     bound_by = set()
+    per_pool = {}
     for (roi_feats, boxes, kw), stage in zip(captured, ("box", "mask", "plane")):
         p, sr, al = kw["resolution"], kw["sampling_ratio"], kw["aligned"]
         valid = kw["valid"]
         args = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=al,
                     valid=valid)
+        bumped, n_rec = _check_record(rac, roi_feats, boxes, valid, p, sr, al)
         ms = _time_ms(lambda: rac.multilevel_roi_align_cuda(roi_feats, boxes, **args))
+        kern = _time_kernel(rac, roi_feats, boxes, valid, p, sr, al)
         plain = _time_ms(lambda: rac.multilevel_roi_align_separable(roi_feats, boxes, **args),
                          iters=3, warmup=1)
-        pr = rac._prepare([f.shape for f in roi_feats], boxes, **args)
-        out = torch.empty((boxes.shape[0] * boxes.shape[1], p, p, roi_feats[0].shape[-1]),
-                          dtype=torch.float32, device="cuda")
-        kern = _time_ms(lambda: rac._launch(roi_feats, pr, out, p))
         bound, by = _bound(rac, roi_feats, boxes, valid, p, sr, al)
         bound_by.add(by)
         _log(f"[timing] {stage:5s} pool P={p:2d} rois={boxes.shape[0] * boxes.shape[1]} "
              f"valid={int(valid.sum())} {str(roi_feats[0].dtype)[6:]}: wrapper {ms:.4f} ms "
-             f"(kernel alone {kern:.4f} ms, prologue {ms - kern:.4f} ms), plain "
-             f"{plain:.4f} ms, bound {bound:.4f} ms by {by} ({card})")
+             f"(kernel alone {kern:.4f} ms, wrapper's own {ms - kern:.4f} ms), plain "
+             f"{plain:.4f} ms, bound {bound:.4f} ms by {by}; wrapper/bound "
+             f"{ms / bound:.2f}x, kernel/bound {kern / bound:.2f}x; record == _prepare on "
+             f"{n_rec} ROIs ({bumped} bumped) ({card})")
+        per_pool[stage] = dict(ms=ms, kernel_ms=kern, plain_ms=plain, bound_ms=bound)
         for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("kernel_ms", kern)):
             tot[k] += v
 
@@ -444,9 +475,12 @@ def main() -> int:
         "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
         "library_ms": None,
-        # ms, plain_ms and bound_ms above are the serving pools'; the
-        # training box pool's, at its own inputs:
+        # ms, plain_ms and bound_ms above are the serving pools' per batch of
+        # 8; each pool's, and the training box pool's at its own inputs:
+        "kernel_ms": tot["kernel_ms"],
+        "pools": per_pool,
         "training_box_pool": train["k1_train"],
+        "record_exact": True,
     }, {
         "name": "roi_align_adj",
         "route": "cuda",
@@ -460,6 +494,8 @@ def main() -> int:
         "bound_ms": train["adj_bound_ms"],
         "bound_by": train["adj_bound_by"],
         "library_ms": None,
+        "kernel_ms": train["adj_kernel_ms"],
+        "float4_atomics": train["adj_atomics"],
     }]
     _log(f"[kernels] K1 per inference batch of 8 = box + mask + plane pools; kernel "
          f"alone {tot['kernel_ms']:.4f} ms; K2 per training step (box pool of "
@@ -607,44 +643,52 @@ def phase_training(rac, card) -> dict:
     feats, boxes, kw = item["features"], item["boxes"], item["kw"]
     g = item["g"].reshape(-1, *item["g"].shape[2:]).contiguous()
     valid = kw["valid"]
-    args = dict(strides=STRIDES, output_size=kw["output_size"],
-                sampling_ratio=kw["sampling_ratio"], aligned=kw["aligned"], valid=valid)
+    p, sr, al = kw["output_size"], kw["sampling_ratio"], kw["aligned"]
+    opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=al)
+    args = dict(opts, valid=valid)
     shapes = [f.shape for f in feats]
+    bumped, n_rec = _check_record(rac, feats, boxes, valid, p, sr, al)
     pr = rac._prepare(shapes, boxes, **args)
-    g = torch.where(valid.reshape(-1)[:, None, None, None], g, torch.zeros_like(g))
-    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr)
+    _, record = rac._forward_kernel(feats, boxes, valid, dict(opts, min_level=2))
+    kboxes, _ = rac._kernel_boxes(boxes, None, p)
+    # K2 takes the cotangent as the pooler gets it: invalid rows are skipped
+    # by their record (nty = 0), as the plain version skips them
+    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **opts)
     want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     scale = max(float(b.abs().max()) for b in want)
     assert err <= 1e-4 * scale, (err, scale)
-    adj_ms = _time_ms(lambda: rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr))
+    adj_ms = _time_ms(lambda: rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record,
+                                                                    **opts))
     grads = [torch.zeros_like(d) for d in got]
-    adj_kernel_ms = _time_ms(lambda: rac._launch_adj(g, pr, grads))
+    adj_kernel_ms = _time_ms(lambda: rac._launch_adj(g, kboxes, record, dict(opts, min_level=2),
+                                                     grads))
     adj_plain_ms = _time_ms(lambda: rac.multilevel_roi_align_adjoint_separable(g, shapes, pr),
                             iters=3, warmup=1)
-    prep_ms = _time_ms(lambda: rac._prepare(shapes, boxes, **args))
     fwd_ms = _time_ms(lambda: rac.multilevel_roi_align_cuda(feats, boxes, **args))
-    out = torch.empty((boxes.shape[0] * boxes.shape[1],) + tuple(g.shape[1:]),
-                      dtype=torch.float32, device="cuda")
-    fwd_kernel_ms = _time_ms(lambda: rac._launch(feats, pr, out, kw["output_size"]))
+    fwd_kernel_ms = _time_kernel(rac, feats, boxes, valid, p, sr, al)
     fwd_plain_ms = _time_ms(lambda: rac.multilevel_roi_align_separable(feats, boxes, **args),
                             iters=3, warmup=1)
-    fwd_bound, fwd_by = _bound(rac, feats, boxes, valid, kw["output_size"],
-                               kw["sampling_ratio"], kw["aligned"])
+    fwd_bound, fwd_by = _bound(rac, feats, boxes, valid, p, sr, al)
     bound, by = _adjoint_bound(rac, shapes, pr, g)
+    atomics = _adjoint_atomics(rac, pr, g.shape[-1])
+    rmw_ms = atomics * 16 * 2 / HBM_BYTES_PER_S * 1e3
     rois = boxes.shape[0] * boxes.shape[1]
     _log(f"[timing] training box pool, {rois} ROIs ({int(valid.sum())} sampled), "
          f"float32 features: K2 wrapper {adj_ms:.4f} ms (kernel alone "
          f"{adj_kernel_ms:.4f} ms, zero fill and checks {adj_ms - adj_kernel_ms:.4f} ms), "
-         f"plain {adj_plain_ms:.4f} ms, bound {bound:.4f} ms by {by}; max_abs_err "
-         f"{err:.3e} (max|plain| {scale:.3e}); K1 wrapper {fwd_ms:.4f} ms (kernel alone "
-         f"{fwd_kernel_ms:.4f} ms), plain {fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms "
-         f"by {fwd_by}; prologue {prep_ms:.4f} ms, built once per step and saved for the "
-         f"backward ({card})")
+         f"plain {adj_plain_ms:.4f} ms, bound {bound:.4f} ms by {by}, kernel/bound "
+         f"{adj_kernel_ms / bound:.2f}x; {atomics} float4 atomic adds, whose read and "
+         f"write of 16 B each would take {rmw_ms:.4f} ms at 3.35 TB/s ({rmw_ms / bound:.2f}x "
+         f"the bound); max_abs_err {err:.3e} (max|plain| {scale:.3e}); "
+         f"K1 wrapper {fwd_ms:.4f} ms (kernel alone {fwd_kernel_ms:.4f} ms), plain "
+         f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms by {fwd_by}, wrapper/bound "
+         f"{fwd_ms / fwd_bound:.2f}x; record == _prepare on {n_rec} ROIs ({bumped} bumped) "
+         f"({card})")
     return dict(k1=k1, k2=k2, rois=rois, adj_err=err, adj_ms=adj_ms,
                 adj_kernel_ms=adj_kernel_ms, adj_plain_ms=adj_plain_ms,
-                adj_bound_ms=bound, adj_bound_by=by, batch=batch,
+                adj_bound_ms=bound, adj_bound_by=by, adj_atomics=atomics, batch=batch,
                 k1_train=dict(ms=fwd_ms, kernel_ms=fwd_kernel_ms, plain_ms=fwd_plain_ms,
                               bound_ms=fwd_bound, bound_by=fwd_by))
 
@@ -667,6 +711,27 @@ def _adjoint_bound(rac, shapes, pr, g):
     nbytes = int((nty > 0).sum()) * p * p * c * 4 + out
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _adjoint_atomics(rac, pr, c: int) -> int:
+    """The float4 atomic adds one K2 call issues: per valid ROI, the window
+    rows and columns that some output row's (column's) support holds,
+    times C / 4."""
+    import torch
+    ry, rx = rac._predicated_weights(pr)
+
+    def covered(w):                     # (T, P, span) -> (T,) cells covered
+        nz = w != 0
+        span = w.shape[-1]
+        idx = torch.arange(span, device=w.device)
+        has = nz.any(-1)
+        lo = torch.where(has, nz.float().argmax(-1), torch.full_like(has, span, dtype=torch.long))
+        hi = torch.where(has, span - 1 - nz.flip(-1).float().argmax(-1),
+                         torch.full_like(has, -1, dtype=torch.long))
+        return ((idx >= lo[..., None]) & (idx <= hi[..., None])).any(1).sum(-1)
+
+    valid = pr["nty"] > 0
+    return int((covered(ry) * covered(rx))[valid].sum()) * (c // 4)
 
 
 def _profile_train_step(trainer, card) -> None:
@@ -822,6 +887,35 @@ def _profile_step(pipe, frames, card) -> None:
          f"{n} kernels, kernel time {total / 1e3:.3f} ms ({card})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         _log(f"[profile]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  {name[:110]}")
+
+
+class _count_calls:
+    """Counts the calls of `module.name` until `restore()`."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.n = module, name, 0
+        self.orig = getattr(module, name)
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+
+        setattr(module, name, counted)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def _time_kernel(rac, feats, boxes, valid, p, sr, aligned) -> float:
+    """K1 alone (`_launch` into preallocated outputs), CUDA events, ms."""
+    import torch
+    opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned,
+                min_level=2)
+    boxes, valid = rac._kernel_boxes(boxes, valid, p)
+    total = boxes.shape[0] * boxes.shape[1]
+    out = torch.empty((total, p, p, feats[0].shape[-1]), dtype=torch.float32, device="cuda")
+    record = torch.empty((total, 5), dtype=torch.int32, device="cuda")
+    return _time_ms(lambda: rac._launch(feats, boxes, valid, opts, record, out))
 
 
 def _main_path_err(rac, captured) -> float:

@@ -6,7 +6,9 @@ only PyTorch and the CUDA toolkit (from the repository root):
 
     python -m pytest tests/test_torch_roi_align_cuda.py --noconftest -m cuda -q
 
-Elsewhere each test skips itself.  Tolerances: float32 1e-5 x max |out|
+Elsewhere each test skips itself.  K1's record (level, y0, x0, nty, ntx),
+computed on the card by its fused prologue, must equal torch `_prepare`
+and `_roi_record` on the card exactly.  Tolerances: float32 1e-5 x max |out|
 (the same float32 sums in another order); bfloat16 1e-2 x max |out| (the
 stated bf16 budget; kernel and plain version read the same bf16 features
 with float32 weights).  Invalid ROIs must give exact zeros.  K2 adds with
@@ -73,6 +75,10 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         rac.multilevel_roi_align_cuda([f.float() for f in feats], boxes,
                                       strides=STRIDES, output_size=20,
                                       sampling_ratio=0, aligned=True)
+    with pytest.raises(ValueError):     # bf16 loads take 8 channels at a time
+        rac.multilevel_roi_align_cuda([f[..., :4].bfloat16().contiguous() for f in feats],
+                                      boxes, strides=STRIDES, output_size=7,
+                                      sampling_ratio=0, aligned=True)
 
 
 def _cuda_case(p, sr, aligned, seed=1):
@@ -95,6 +101,7 @@ def test_cuda_adjoint_matches_plain_version_and_transposes_k1(p, sr, aligned):
     gen, feats, boxes, valid, kw = _cuda_case(p, sr, aligned)
     shapes = [f.shape for f in feats]
     pr = rac._prepare(shapes, boxes, valid=valid, **kw)
+    _, record = rac._forward_kernel(feats, boxes, valid, dict(kw, min_level=2))
     levels = pr["levels"].long()
     bumped = rac.pallas_level_idx(boxes.reshape(-1, 4), n_levels=4, strides=STRIDES,
                                   output_size=p, sampling_ratio=sr, aligned=aligned)
@@ -102,7 +109,7 @@ def test_cuda_adjoint_matches_plain_version_and_transposes_k1(p, sr, aligned):
     assert bool((bumped != base).any())        # the 9:1 set leaves its level
     g = torch.randn((levels.numel(), p, p, 256), generator=gen, device="cuda")
     before = rac.multilevel_roi_align_adjoint_cuda.launches
-    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr)
+    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **kw)
     assert rac.multilevel_roi_align_adjoint_cuda.launches == before + 1
     want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
     fwd = rac.multilevel_roi_align_cuda(feats, boxes, valid=valid, **kw)
@@ -114,7 +121,8 @@ def test_cuda_adjoint_matches_plain_version_and_transposes_k1(p, sr, aligned):
     # invalid ROIs send nothing: a cotangent only on them gives zero gradients
     only_invalid = g * (~valid).reshape(-1, 1, 1, 1)
     assert all(float(d.abs().max()) == 0.0
-               for d in rac.multilevel_roi_align_adjoint_cuda(only_invalid, shapes, pr))
+               for d in rac.multilevel_roi_align_adjoint_cuda(only_invalid, shapes, boxes,
+                                                              record, **kw))
     lhs = float((fwd.double() * g.reshape(fwd.shape).double()).sum())
     rhs = float(sum((f.double() * d.double()).sum() for f, d in zip(feats, got)))
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
@@ -150,3 +158,20 @@ def test_cuda_train_pool_matches_plain_versions(p, sr, aligned):
     for f, ref in zip(fs, ref_dfeats):
         assert float((f.grad - ref).abs().max()) <= 1e-4 * scale
     assert bx.grad is not None and float(bx.grad.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,sr,aligned", POOLS)
+def test_cuda_record_equals_prepare(p, sr, aligned):
+    """The fused prologue's integers equal torch `_prepare` and `_roi_record`
+    on the card, bumped 9:1 boxes and invalid rows included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    _, feats, boxes, valid, kw = _cuda_case(p, sr, aligned, seed=3)
+    _, record = rac._forward_kernel(feats, boxes, valid, dict(kw, min_level=2))
+    shapes = [f.shape for f in feats]
+    want = rac._record_of(rac._prepare(shapes, boxes, valid=valid, **kw))
+    twin = rac._roi_record(shapes, boxes, valid=valid, **kw)
+    torch.cuda.synchronize()
+    assert record.dtype == torch.int32 and tuple(record.shape) == (boxes.shape[1], 5)
+    assert torch.equal(record, want) and torch.equal(twin, want)

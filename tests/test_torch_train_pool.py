@@ -15,6 +15,8 @@
     interpret=True)` in forward (1e-5) and feature gradients (1e-4), and
     impl "torch" under torch autograd matches JAX `use_pallas=False`
     (1e-5, the same linear map summed in another order);
+  * K3 saves the boxes, `valid` and the (T, 5) int32 record for its
+    backward, not the Ry/Rx weights;
   * boxes get a zero gradient, invalid rows pool to exact zeros and send
     nothing to the features, and the wrappers take their plain versions
     for CPU tensors without counting a launch.
@@ -240,8 +242,29 @@ def test_adjoint_wrapper_takes_plain_version_on_cpu():
     boxes = _t(_boxes(rs))
     g = _t(rs.randn(12, 7, 7, 8).astype(np.float32))
     pr = rac._prepare(shapes, boxes, **KW7)
+    record = rac._roi_record(shapes, boxes, **KW7)
     before = rac.multilevel_roi_align_adjoint_cuda.launches
-    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, pr)
+    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **KW7)
     assert rac.multilevel_roi_align_adjoint_cuda.launches == before
     for a, w in zip(got, rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)):
         torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+def test_k3_saves_the_compact_record(interp):
+    """K3 keeps boxes, valid and the (T, 5) int32 record for its backward,
+    not the (T, P, 64) and (T, P, 80) weights, and still matches JAX's
+    interpret-mode `_train_pool` in value and feature gradients."""
+    feats = [_t(f).requires_grad_() for f in interp["feats"]]
+    boxes, valid = _t(interp["boxes"]), _t(interp["valid"])
+    out = rac.multilevel_roi_align_train(feats, boxes, impl="cuda", valid=valid, **KW7)
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(s.shape) for s in saved] == [(2, 6, 4), (2, 6), (12, 5)]
+    record = saved[2]
+    assert record.dtype == torch.int32
+    np.testing.assert_array_equal(
+        record.numpy(), rac._roi_record(interp["shapes"], boxes, valid=valid, **KW7).numpy())
+    assert ((record[:, 3] > 0).numpy() == interp["valid"].reshape(-1)).all()
+    np.testing.assert_allclose(out.detach().numpy(), interp["k3_out"], rtol=1e-5, atol=1e-5)
+    (out * _t(interp["g"])).sum().backward()
+    for f, w in zip(feats, interp["k3_grads"]):
+        np.testing.assert_allclose(f.grad.numpy(), w, rtol=1e-4, atol=1e-4)
