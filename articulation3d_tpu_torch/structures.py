@@ -55,6 +55,19 @@ class FramePrediction:
     def __len__(self):
         return len(self.boxes)
 
+    @property
+    def box_centers(self) -> np.ndarray:
+        return (self.boxes[:, :2] + self.boxes[:, 2:]) / 2.0
+
+    def copy(self) -> "FramePrediction":
+        """A copy whose boxes, scores, classes, planes and axes are new
+        arrays (the temporal optimizer writes into them); the masks are
+        shared, as in the JAX package."""
+        return FramePrediction(self.boxes.copy(), self.scores.copy(),
+                               self.classes.copy(), self.masks,
+                               self.planes.copy(), self.rot_axis.copy(),
+                               self.tran_axis.copy())
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names

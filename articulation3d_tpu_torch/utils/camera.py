@@ -1,10 +1,10 @@
-"""Pinhole camera constants and back-projection rays (numpy).
+"""Pinhole camera constants, lifting and projection (numpy, float64).
 
 Counterpart of the parts of `articulation3d_tpu/utils/camera.py` that the
 inference path uses.  Two focal lengths are in play, as in the reference:
-FOCAL_OPT 517.97 for the temporal optimizer and mesh lifting, FOCAL_EVAL
-571.623718 with principal point (319.5, 239.5) for the depth and
-evaluation paths.
+FOCAL_OPT 517.97 with the principal point at the image center for the
+temporal optimizer and mesh lifting, FOCAL_EVAL 571.623718 with principal
+point (319.5, 239.5) for the depth and evaluation paths.  Do not mix them.
 """
 
 from __future__ import annotations
@@ -13,6 +13,14 @@ import numpy as np
 
 FOCAL_OPT = 517.97
 FOCAL_EVAL = 571.623718
+
+
+def intrinsics(h: int = 480, w: int = 640,
+               focal_length: float = FOCAL_OPT) -> np.ndarray:
+    """K with the principal point at the image center."""
+    return np.array([[focal_length, 0.0, w / 2.0],
+                     [0.0, focal_length, h / 2.0],
+                     [0.0, 0.0, 1.0]])
 
 
 def intrinsics_eval() -> np.ndarray:
@@ -29,3 +37,22 @@ def get_k_inv_dot_xy_1_eval(h: int = 480, w: int = 640) -> np.ndarray:
                          np.arange(h, dtype=np.float64))
     homo = np.stack([xx.ravel(), yy.ravel(), np.ones(h * w)], axis=0)
     return k_inv @ homo
+
+
+def get_pcd(verts: np.ndarray, normal: np.ndarray, offset, h: int = 480,
+            w: int = 640, focal_length: float = FOCAL_OPT) -> np.ndarray:
+    """Lift (N, 2) pixels (x, y) to the plane n . p = offset: depth =
+    offset / (n . K^-1 q) -> (N, 3) camera-space points."""
+    k_inv = np.linalg.inv(intrinsics(h, w, focal_length))
+    homo = np.concatenate([verts, np.ones((verts.shape[0], 1))], axis=1)
+    ray = homo @ k_inv.T
+    depth = np.asarray(offset) / (ray @ np.asarray(normal))
+    return depth[:, None] * ray
+
+
+def project2D(pcd: np.ndarray, h: int = 480, w: int = 640,
+              focal_length: float = FOCAL_OPT) -> np.ndarray:
+    """Project (N, 3) camera-space points to (N, 2) pixels."""
+    k = intrinsics(h, w, focal_length)
+    proj = pcd @ k.T
+    return proj[:, :2] / proj[:, 2][:, None]

@@ -40,7 +40,25 @@ non-zero exit):
      with the gather pooler under autograd, losses and the p2 convs'
      gradients compared; then the two poolers' gradients to p2..p5 on the
      kernel run's own features, boxes and cotangent;
-  7. a JSON line of kernel measurements, then the device JSON as the last
+  7. the temporal stage at full width (480x640, FOCAL_OPT): (a) the
+     known-answer clip of tests/test_temporal_truth.py (30 frames of a
+     door rotating about a vertical hinge) through `track_planes` and
+     `optimize_planes(..., "3dc")` with the sweeps on the card: one track,
+     `has_rot`, no score down-weighted, EA > 0.8 on every frame, and the
+     stage once more under torch.profiler (the card's busy share); (b) the
+     card's `rotation_sweep`, `translation_sweep` and `iou_matrix` against
+     the same torch functions on the CPU, on that clip's seed and on seeds
+     whose planes put pixels behind the camera and at z ~ 0 (masks equal
+     up to 1e-4 of the pixels, IoU within 1e-5), with their card times;
+     (c) `VideoPipeline` (phase 3's config) on 32 frames of one noise image
+     shifted by a pixel per frame, then track and optimise: tracks, how
+     many have `has_rot`, sweeps per second, and the walls;
+  8. the CLI's body, `infer.run_video`, on those 32 frames with
+     `--save-obj` into `.chip_smoke/cli/`: `output.mp4` (or, without an
+     encoder, the frames handed to the writer) and
+     `frame_0000/arti_pred.{obj,mtl}` exist and are non-empty; K1's launches
+     on this path, and the walls of its stages;
+  9. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
 Exits non-zero without a result when there is no CUDA device or the
@@ -460,15 +478,28 @@ def main() -> int:
     # 6. training path parity, float32 -------------------------------------
     phase_training_parity(rac, train)
 
-    # 7. results ---------------------------------------------------------
+    # 7. temporal stage at full width ----------------------------------------
+    phase_temporal(card)
+    model = build_model(cfg, state_dict=sd)
+    pipe = VideoPipeline(cfg, model, batch_size=8, conf_threshold=0.0)
+    clip = _shifted_clip()
+    phase_temporal_pipeline(pipe, clip, card)
+
+    # 8. the CLI's body with --save-obj --------------------------------------
+    k1_cli = phase_artefacts(rac, pipe, clip, card)
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    # 9. results ---------------------------------------------------------
     max_err = _main_path_err(rac, captured)
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_fwd.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:184",
-        "launches": k1_inference + train["k1"],
-        "launches_by_path": {"inference": k1_inference, "training": train["k1"]},
+        "launches": k1_inference + train["k1"] + k1_cli,
+        "launches_by_path": {"inference": k1_inference, "training": train["k1"],
+                             "cli": k1_cli},
         "max_abs_err": max_err,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
@@ -487,7 +518,7 @@ def main() -> int:
         "source": "articulation3d_tpu_torch/csrc/roi_align_adj.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:519",
         "launches": train["k2"],
-        "launches_by_path": {"inference": 0, "training": train["k2"]},
+        "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0},
         "max_abs_err": train["adj_err"],
         "ms": train["adj_ms"],
         "plain_ms": train["adj_plain_ms"],
@@ -505,6 +536,263 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+ROT_ANGLES = np.arange(-np.pi / 2, np.pi, np.pi / 30)     # the optimizer's grids
+TRANS_STEPS = np.arange(-1.0, 1.0, 0.1)
+
+
+def _door_clip(h: int = 480, w: int = 640, n: int = 30):
+    """tests/test_temporal_truth.py's clip: a 1.2 m door turning from -0.4 to
+    0.4 rad about the vertical hinge x = -0.5, z = 3, y in [-0.8, 0.8],
+    drawn with the optimizer's camera.  Returns (predictions, the hinge's
+    image segment [x1, y1, x2, y2])."""
+    import cv2
+
+    from articulation3d_tpu_torch.data.axis_codec import axis_to_angle_offset
+    from articulation3d_tpu_torch.structures import FramePrediction
+    from articulation3d_tpu_torch.utils.camera import FOCAL_OPT, intrinsics
+    from articulation3d_tpu_torch.utils.coords import camera_to_plane
+    k = intrinsics(h, w, FOCAL_OPT)
+    proj = lambda p: (p @ k.T)[:, :2] / (p @ k.T)[:, 2:3]
+    a, b = np.array([-0.5, -0.8, 3.0]), np.array([-0.5, 0.8, 3.0])
+    hinge = proj(np.stack([a, b])).reshape(4)
+    preds = []
+    for theta in np.linspace(-0.4, 0.4, n):
+        d = np.array([np.cos(theta), 0.0, np.sin(theta)])
+        quad = proj(np.stack([a, b, b + 1.2 * d, a + 1.2 * d]))
+        mask = np.zeros((h, w), np.uint8)
+        cv2.fillPoly(mask, [np.round(quad).astype(np.int32)], 1)
+        ys, xs = np.nonzero(mask)
+        box = np.array([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1], np.float32)
+        nrm = np.array([-np.sin(theta), 0.0, np.cos(theta)])
+        enc = axis_to_angle_offset(hinge[None], ((box[:2] + box[2:]) / 2.0)[None])[0]
+        preds.append(FramePrediction(
+            boxes=box[None], scores=np.array([0.9]), classes=np.array([0]),
+            masks=mask[None].astype(bool), planes=camera_to_plane(nrm * float(nrm @ a))[None],
+            rot_axis=enc[None, :3], tran_axis=np.zeros((1, 2), np.float32)))
+    return preds, hinge
+
+
+def _sweep_cases(preds):
+    """(name, kind, mask, normal, offset, p0, dir, hypotheses) at 480x640:
+    the door clip's frame-0 seed under both grids; a plane through the
+    camera's horizon (rows above it lift behind the camera, rows beside it
+    far away); the plane z = 2^-40 moved by -1 x (-0.3, 0, 2^-40 - 2^-63),
+    whose points land at z = 2^-63 with px ~ 1e21, beyond int32 and int64."""
+    from articulation3d_tpu_torch.temporal import optimizer as topt
+    normal, offset, p0, dvec = topt._seed_geometry(preds[0], 0, "rot", 480, 640)
+    door = preds[0].masks[0].astype(np.float32)
+    band = np.zeros((480, 640), np.float32)
+    band[190:230, 160:480] = 1.0
+    tilt = np.array([0.0, 1.0, 0.05]) / np.linalg.norm([0.0, 1.0, 0.05])
+    d = 2.0 ** -40
+    return [
+        ("door", "rot", door, normal, offset, p0, dvec, ROT_ANGLES),
+        ("door", "trans", door, normal, offset, p0, dvec, TRANS_STEPS),
+        ("behind_camera", "rot", band, tilt, 1.0, np.array([0.1, 0.0, 2.0]),
+         np.array([0.6, 0.0, 0.8]), ROT_ANGLES),
+        ("near_zero_depth", "trans", door, np.array([0.0, 0.0, 1.0]), d, np.zeros(3),
+         np.array([-0.3, 0.0, d - 2.0 ** -63]), np.array([-1.0, 0.0, 0.5])),
+    ]
+
+
+def phase_temporal(card, device: str = "cuda") -> None:
+    """(a) the door clip's articulation recovered on the card; (b) the
+    card's sweeps and IoU product against the CPU's."""
+    import random
+
+    import torch
+
+    from articulation3d_tpu_torch.temporal import kernels as tk
+    from articulation3d_tpu_torch.temporal import optimizer as topt
+    from articulation3d_tpu_torch.temporal import optimize_planes, track_planes
+    from articulation3d_tpu_torch.utils.metrics import EA_metric, Line
+
+    preds, hinge = _door_clip()
+    random.seed(2020)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks = track_planes(preds)
+    opt = optimize_planes(preds, tracks, "3dc", h=480, w=640, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gt = Line([hinge[1], hinge[0], hinge[3], hinge[2]])
+    eas = []
+    for p in opt:
+        seg = topt._decode_axis(p, "rot", 480, 640)[0].astype(np.float64)
+        eas.append(EA_metric(Line([seg[1], seg[0], seg[3], seg[2]]), gt, size=(640, 480)))
+    _log(f"[temporal] door clip, 30 frames 480x640, random.seed(2020): tracks rot "
+         f"{len(tracks['rot'])} trans {len(tracks['trans'])}, has_rot "
+         f"{[t['has_rot'] for t in tracks['rot']]}, std_axis "
+         f"{tracks['rot'][0].get('std_axis', np.zeros(4)).tolist()}, EA min {min(eas):.4f} "
+         f"mean {float(np.mean(eas)):.4f}; track + optimise wall {wall:.4f} s ({card})")
+    assert len(tracks["rot"]) == 1 and len(tracks["trans"]) == 0, tracks
+    assert len(tracks["rot"][0]["ids"]) == 30
+    assert tracks["rot"][0]["has_rot"] is True
+    assert all(np.allclose(p.scores, 0.9) for p in opt)
+    assert min(eas) > 0.8, eas
+
+    _profile_optimise(preds, device, card)
+    masks = torch.from_numpy(np.stack([p.masks[0] for p in preds])).float()
+    masks_dev = masks.to(device)
+    for name, kind, mask, normal, offset, p0, dvec, hyp in _sweep_cases(preds):
+        args = {}
+        for dev in ("cpu", device):
+            f32 = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+            if kind == "rot":
+                args[dev] = (tk.rotation_sweep, (f32(mask), f32(normal), f32(offset), f32(p0),
+                                                 f32(dvec), f32(hyp)))
+            else:
+                args[dev] = (tk.translation_sweep, (f32(mask), f32(normal), f32(offset),
+                                                    f32(dvec), f32(hyp)))
+        run = lambda dev: args[dev][0](*args[dev][1], h=480, w=640)
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        card_out = run(device)
+        torch.cuda.synchronize()
+        diff = int(((card_out.cpu() > 0.5) != (cpu > 0.5)).sum())
+        ms = _time_ms(lambda: run(device))
+        iou_cpu = tk.iou_matrix(masks, cpu)
+        iou_card = tk.iou_matrix(masks_dev, cpu.to(device))
+        ierr = float(np.nanmax(np.abs(iou_card.cpu().numpy() - iou_cpu.numpy())))
+        nan_same = bool((torch.isnan(iou_card.cpu()) == torch.isnan(iou_cpu)).all())
+        iou_ms = _time_ms(lambda: tk.iou_matrix(masks_dev, card_out))
+        _log(f"[temporal] {name:16s} {kind:5s} sweep of {len(hyp)} hypotheses at 480x640: "
+             f"card vs CPU {diff}/{cpu.numel()} mask pixels differ (tol "
+             f"{int(1e-4 * cpu.numel())}); card {ms:.4f} ms, CPU {1e3 * cpu_s:.1f} ms "
+             f"(one call); iou_matrix 30x{len(hyp)} card vs CPU max abs err {ierr:.3e} "
+             f"(tol 1e-5), NaN pattern equal {nan_same}, card {iou_ms:.4f} ms ({card})")
+        assert diff <= 1e-4 * cpu.numel(), (name, diff)
+        assert ierr <= 1e-5 and nan_same, (name, ierr)
+        if name == "near_zero_depth":
+            # saturating-cast semantics: the whole mask lands in column W-1
+            hit = torch.nonzero(card_out[0].cpu() > 0.5)
+            assert hit.shape[0] == 3 and bool((hit[:, 1] == 639).all()), hit.tolist()
+
+
+def _profile_optimise(preds, device, card) -> None:
+    """The door clip's track + optimise once more under torch.profiler:
+    the card's busy share of the stage's wall and its kernels by time."""
+    import random
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from articulation3d_tpu_torch.temporal import optimize_planes, track_planes
+    random.seed(2020)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        optimize_planes(preds, track_planes(preds), "3dc", h=480, w=640, device=device)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name, n = _device_time(prof)
+    total = sum(by_name.values())
+    _log(f"[profile-temporal] door clip track + optimise: wall {wall_us / 1e3:.3f} ms under "
+         f"the profiler, device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), {n} "
+         f"kernels, kernel time {total / 1e3:.3f} ms ({card})")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        _log(f"[profile-temporal]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  "
+             f"{name[:110]}")
+
+
+def _shifted_clip(n: int = 32, h: int = 480, w: int = 640):
+    """n frames cut from one seeded noise image, each shifted by one pixel,
+    so that a detector's boxes persist from frame to frame."""
+    base = np.random.RandomState(1).randint(0, 256, (h, w + n, 3)).astype(np.uint8)
+    return [np.ascontiguousarray(base[:, t:t + w]) for t in range(n)]
+
+
+def phase_temporal_pipeline(pipe, frames, card) -> None:
+    """(c) the detector at full width on the shifted clip, then track and
+    optimise on the card: tracks, has_rot, sweeps per second, walls."""
+    import random
+
+    import torch
+
+    from articulation3d_tpu_torch.temporal import optimizer as topt
+    from articulation3d_tpu_torch.temporal import optimize_planes, track_planes
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = pipe.run(frames)
+    det_wall = time.perf_counter() - t0
+    sweeps = [_count_calls(topt, "rotation_sweep"), _count_calls(topt, "translation_sweep")]
+    random.seed(2020)
+    try:
+        t1 = time.perf_counter()
+        tracks = track_planes(preds)
+        t2 = time.perf_counter()
+        opt = optimize_planes(preds, tracks, "3dc", h=pipe.output_height,
+                              w=pipe.output_width, device=pipe.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        for c in sweeps:
+            c.restore()
+    n_rot, n_trans = len(tracks["rot"]), len(tracks["trans"])
+    has = sum(bool(t["has_rot"]) for cat in tracks.values() for t in cat)
+    n_sweeps = sweeps[0].n + sweeps[1].n
+    _log(f"[temporal-pipeline] detector on {len(frames)} shifted {frames[0].shape[0]}x"
+         f"{frames[0].shape[1]} frames (batch {pipe.batch_size}, "
+         f"conf 0): {det_wall:.4f} s, {np.mean([len(p) for p in preds]):.1f} detections per "
+         f"frame; tracks rot {n_rot} trans {n_trans}, has_rot {has}; track {t2 - t1:.4f} s, "
+         f"optimise {t3 - t2:.4f} s ({sweeps[0].n} rotation + {sweeps[1].n} translation "
+         f"sweeps, {n_sweeps / max(t3 - t2, 1e-9):.1f} sweeps/s); track + optimise "
+         f"{t3 - t1:.4f} s ({card})")
+    assert n_rot + n_trans > 0, "no detection persisted over 10 frames"
+    assert n_sweeps > 0 and len(opt) == len(frames)
+    assert all(np.isfinite(p.scores).all() for p in opt)
+
+
+def phase_artefacts(rac, pipe, frames, card) -> int:
+    """The CLI's body with --save-obj on the shifted clip; returns K1's
+    launches on this path."""
+    import shutil
+
+    from articulation3d_tpu_torch import infer
+    from articulation3d_tpu_torch.video import io as vio
+
+    out = os.path.join(ROOT, ".chip_smoke", "cli")
+    shutil.rmtree(out, ignore_errors=True)
+    handed = []
+    write_video = vio.write_video
+
+    def recording(path, frames, **kw):
+        handed.append([f.shape for f in frames])
+        return write_video(path, frames, **kw)
+
+    vio.write_video = recording
+    rac.multilevel_roi_align_cuda.launches = 0
+    try:
+        t0 = time.perf_counter()
+        walls = infer.run_video(pipe, frames, 30.0, out, conf_threshold=0.0, save_obj=True)
+        wall = time.perf_counter() - t0
+    finally:
+        vio.write_video = write_video
+    launches = rac.multilevel_roi_align_cuda.launches
+    mp4 = os.path.join(out, "output.mp4")
+    mp4_bytes = os.path.getsize(mp4) if os.path.exists(mp4) else 0
+    sizes = {name: os.path.getsize(os.path.join(out, "frame_0000", name))
+             for name in ("arti_pred.obj", "arti_pred.mtl")
+             if os.path.exists(os.path.join(out, "frame_0000", name))}
+    objs = sorted(d for d in os.listdir(out) if d.startswith("frame_"))
+    walls = ", ".join(f"{k} {v:.4f} s" for k, v in walls.items())
+    _log(f"[artefacts] infer.run_video, {len(frames)} frames {frames[0].shape[0]}x"
+         f"{frames[0].shape[1]}, --save-obj: {wall:.4f} s "
+         f"({walls}); K1 launches {launches}; output.mp4 {mp4_bytes} bytes, "
+         f"{len(handed[0]) if handed else 0} frames of {handed[0][0] if handed else None} "
+         f"handed to write_video; {objs} with frame_0000 {sizes} bytes ({card})")
+    assert launches > 0
+    h, w = frames[0].shape[:2]
+    assert handed and len(handed[0]) == len(frames) and handed[0][0] == (h, 4 * w, 3)
+    if mp4_bytes == 0:
+        _log("[artefacts] no mp4 encoder in this OpenCV build: output.mp4 not written; "
+             "the frames handed to write_video were checked instead")
+    assert sizes.get("arti_pred.obj", 0) > 0 and sizes.get("arti_pred.mtl", 0) > 0, sizes
+    return launches
 
 
 def _train_batch(cfg, b: int, g: int = 4):

@@ -1,14 +1,14 @@
 """The port stands alone: no JAX, no JAX package, and no silent CPU fallback.
 
   * a fresh interpreter imports every module of `articulation3d_tpu_torch`
-    (the training slice's `train.*` among them) and `chip_smoke.py` and
-    finds neither `jax`, `flax`, `optax` nor `articulation3d_tpu` in
-    `sys.modules`;
+    (the training slice's `train.*` and the CLI's temporal, export and vis
+    modules among them) and `chip_smoke.py` and finds neither `jax`,
+    `flax`, `optax` nor `articulation3d_tpu` in `sys.modules`;
   * no import statement in the port or in `chip_smoke.py` names them;
   * entry points called without a device run on the card, and raise where
     there is none;
-  * the CLI runs end to end on the CPU when asked to, and refuses
-    `--save-obj`.
+  * the CLI runs end to end on the CPU when asked to, `--save-obj`
+    included, and refuses to run without a card otherwise.
 """
 
 import os
@@ -39,6 +39,10 @@ print("BAD=" + ",".join(bad))
 """
 
 _TRAIN_MODULES = ("checkpoint", "optimizer", "targets", "train_step", "trainer")
+_CLI_MODULES = ("temporal.tracker", "temporal.kernels", "temporal.optimizer",
+                "export.mesh", "export.obj_writer", "export.save_model",
+                "vis.visualizer", "video.io", "data.axis_codec", "data.catalog",
+                "utils.metrics", "native")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -51,6 +55,8 @@ def test_importing_the_port_loads_no_jax():
     imported = out.stdout.split("IMPORTED=")[1].split("\n")[0].split(",")
     for m in _TRAIN_MODULES:
         assert f"articulation3d_tpu_torch.train.{m}" in imported, m
+    for m in _CLI_MODULES:
+        assert f"articulation3d_tpu_torch.{m}" in imported, m
 
 
 def test_no_import_statement_names_jax():
@@ -80,6 +86,9 @@ def test_entry_points_default_to_the_card():
 
 
 def test_cli_runs_on_cpu_and_refuses_save_obj(tmp_path):
+    """`--save-obj` is accepted: on the CPU the CLI writes the detector's
+    predictions, the visualisation and the frame-0 mesh; without
+    `--device` and without a card it refuses to run."""
     import cv2
 
     from articulation3d_tpu_torch import infer
@@ -93,13 +102,21 @@ def test_cli_runs_on_cpu_and_refuses_save_obj(tmp_path):
         "input: {height: 64, width: 96}\nweights: ''\n")
     img = np.random.RandomState(0).randint(0, 255, (64, 96, 3)).astype(np.uint8)
     cv2.imwrite(str(tmp_path / "frame.png"), img)
+    out = tmp_path / "out"
     args = ["--config", str(cfg), "--input", str(tmp_path / "frame.png"),
-            "--output", str(tmp_path / "out"), "--conf-threshold", "0.0"]
-    with pytest.raises(SystemExit):
-        infer.main(args + ["--save-obj"])
+            "--output", str(out), "--conf-threshold", "0.0", "--save-obj"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            infer.main(args)
     infer.main(args + ["--device", "cpu", "--batch-size", "2"])
-    with np.load(tmp_path / "out" / "predictions.npz") as z:
+    with np.load(out / "predictions.npz") as z:
         assert z["counts"].tolist() == [4]
         assert z["boxes"].shape == (4, 4) and np.isfinite(z["boxes"]).all()
         masks = np.unpackbits(z["masks_packed"], axis=-1, count=int(z["width"]))
         assert masks.shape == (4, 64, 96)
+    vis = cv2.imread(str(out / "output.png"))
+    assert vis.shape == (64, 96 * 4, 3)           # fit, its normals, before the fit
+    obj = (out / "frame_0000" / "arti_pred.obj").read_text()
+    assert obj.startswith("mtllib arti_pred.mtl") and obj.count("# mesh") >= 8
+    assert (out / "frame_0000" / "arti_pred.mtl").stat().st_size > 0
+    assert (out / "frame_0000" / "uv_maps" / "arti_pred_uv_plane_0.png").exists()
