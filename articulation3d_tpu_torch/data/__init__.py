@@ -1,1 +1,1 @@
-"""Axis codec and dataset metadata (the parts the inference CLI uses)."""
+"""Data layer: catalog, JSON loaders, axis codec, fixed-shape mapper."""

@@ -116,6 +116,23 @@ def run_video(pipeline, frames: Sequence[np.ndarray], fps: Optional[float], outp
     return walls
 
 
+def build_model(config, device=None):
+    """The detector of `config` in eval mode on `device` (the card unless
+    named): weights from `config.weights` (a d2 `.pth`/`.pkl` or a
+    checkpoint of `train.Trainer`), else seeded random weights."""
+    from .models.planercnn import build_model as build_planercnn
+    from .structures import resolve_device
+    from .weights import load_torch_state_dict, random_state_dict
+
+    device = resolve_device(device)
+    if config.weights:
+        state_dict = load_torch_state_dict(config.weights)
+    else:
+        print(f"no weights in the config: random weights from seed {config.seed}")
+        state_dict = random_state_dict(config.seed)
+    return build_planercnn(config, device=device, state_dict=state_dict)
+
+
 def _save_predictions(path: str, preds, width: int) -> None:
     cat = lambda name: np.concatenate([getattr(p, name) for p in preds])
     np.savez_compressed(
@@ -144,20 +161,13 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     from .config import load_config
-    from .models.planercnn import build_model
     from .structures import resolve_device
     from .video.io import read_frames
     from .video.pipeline import VideoPipeline
-    from .weights import load_torch_state_dict, random_state_dict
 
     device = resolve_device(args.device)
     config = load_config(args.config)
-    if config.weights:
-        state_dict = load_torch_state_dict(config.weights)
-    else:
-        print(f"no weights in the config: random weights from seed {config.seed}")
-        state_dict = random_state_dict(config.seed)
-    model = build_model(config, device=device, state_dict=state_dict)
+    model = build_model(config, device=device)
     pipeline = VideoPipeline(config, model, batch_size=args.batch_size,
                              conf_threshold=args.conf_threshold, device=device)
 

@@ -8,13 +8,12 @@ each box's local frame (center (w/2, h/2), bounds H=h_box, W=w_box) then
 shifted by the box origin, exactly as the reference does.
 
 Images flow as RGB uint8 (the reference's d2 Visualizer convention).
-`draw_gt` comes with the data path (it needs the dataset mapper).
 """
 
 from __future__ import annotations
 
 import colorsys
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import cv2
 import numpy as np
@@ -141,6 +140,41 @@ def draw_pred(vis: ArtiVisualizer, p: FramePrediction,
     vis.overlay_instances(boxes=p.boxes[keep], labels=labels,
                           assigned_colors=[c for c, k in
                                            zip(assigned_colors, keep) if k])
+    return vis.output.get_image()
+
+
+def draw_gt(vis: ArtiVisualizer, d: Dict, metadata: DatasetMetadata,
+            cls_name_map: Sequence[str]) -> np.ndarray:
+    """Draw GT boxes/axes (reference `draw_gt`, `arti_vis.py:289-361`)."""
+    from ..data.axis_codec import axis_to_angle_offset
+    from ..data.mapper import convert_box
+    annos = d.get("annotations", [])
+    if not annos:
+        return vis.output.get_image()
+    assigned_colors, boxes, labels = [], [], []
+    h_img, w_img = d["height"], d["width"]
+    for anno in annos:
+        box = convert_box(anno["bbox"], int(anno["bbox_mode"]))
+        cls = int(anno["category_id"])
+        color = tuple(c / 255 for c in metadata.thing_colors[cls])
+        assigned_colors.append(color)
+        boxes.append(box)
+        labels.append(f"{cls_name_map[cls]}: gt")
+        axis = (anno.get("rot_axis")
+                if metadata.thing_classes[cls] == "arti_rot"
+                else anno.get("tran_axis"))
+        if axis is not None:
+            center = (box[:2] + box[2:]) / 2
+            enc = axis_to_angle_offset(np.asarray(axis, np.float64)[None],
+                                       center[None])[0][:3]
+            # enlarged box for a longer arrow (border_size 20, clipped)
+            big = np.array([max(box[0] - 20, 0), max(box[1] - 20, 0),
+                            min(box[2] + 20, w_img), min(box[3] + 20, h_img)])
+            pt = _axis_segment_in_box(enc, big)
+            vis.draw_arrow(x_data=[pt[0], pt[2]], y_data=[pt[1], pt[3]],
+                           color=color)
+    vis.overlay_instances(boxes=boxes, labels=labels,
+                          assigned_colors=assigned_colors)
     return vis.output.get_image()
 
 

@@ -19,6 +19,7 @@ The port's parameter names ARE the d2 state-dict keys, so a released
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -122,7 +123,13 @@ def random_state_dict(seed: int = 0) -> Dict[str, np.ndarray]:
     """Seeded He-style weights in the d2 schema, activations O(1) through
     the trunk.  Box deltas and class logits are damped so boxes stay on the
     image and scores do not saturate; depth-head convs are damped so the
-    decoder (running on random BN statistics) stays O(1)."""
+    decoder (running on random BN statistics) stays O(1).  The 208 M draws
+    of a seed are made once per process; each call returns fresh copies."""
+    return {k: v.copy() for k, v in _random_arrays(seed).items()}
+
+
+@functools.lru_cache(maxsize=2)
+def _random_arrays(seed: int) -> Dict[str, np.ndarray]:
     rs = np.random.RandomState(seed)
     out = {}
     for k, s in d2_key_shapes().items():

@@ -58,7 +58,26 @@ non-zero exit):
      encoder, the frames handed to the writer) and
      `frame_0000/arti_pred.{obj,mtl}` exist and are non-empty; K1's launches
      on this path, and the walls of its stages;
-  9. a JSON line of kernel measurements, then the device JSON as the last
+  9. the recipe from a dataset on disk, into `.chip_smoke/datasets` and
+     `.chip_smoke/recipe`: (a) a synthetic 480x640 dataset in the schema of
+     tools/generate_arti.py (48 train, 16 val, 16 test records, a quarter
+     of them negative, u16 depth, two 32-frame val clips), registered under
+     the arti_* and scannet_* names; (b) stage 1 through `train_net.main` on
+     configs/step1_bbox.yaml from the loader (ims 16, 2 warm + 20 timed
+     steps, phase 5's damped weights as the `weights` file): steps/s beside
+     phase 5's, the mapper alone over one epoch, the busy share of one warm
+     step, peak memory, K1/K2 per step and a falling loss; (c)
+     `--eval-only --resume` on arti_val with score threshold 0: the
+     ArtiEvaluator dict (finite, NaN only where no GT is in the range), the
+     walls of inference, RLE and the evaluator, the model back in train
+     mode; (d) stage 3 on configs/step3_plane.yaml warm-started from (b)'s
+     checkpoint (ims 8, 2 + 10 steps, packed masks and u16 depth, no K2),
+     then the ScannetEvaluator; (e) the evaluators' known answers: the val
+     GT as predictions gives bbox and bbox+axis AP 1.0 per class and AUROC
+     1.0, axes turned by 90 degrees bbox+axis AP 0, GT planes plane AP 1.0;
+     (f) `opt_arti` with conf 0 in two SLURM shards over the val clips, then
+     `--load-results`;
+ 10. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
 Exits non-zero without a result when there is no CUDA device or the
@@ -490,16 +509,19 @@ def main() -> int:
     del model, pipe
     torch.cuda.empty_cache()
 
-    # 9. results ---------------------------------------------------------
-    max_err = _main_path_err(rac, captured)
+    # 9. the recipe from a dataset on disk -----------------------------------
+    recipe = phase_recipe(rac, card, train)
+
+    # 10. results --------------------------------------------------------
+    max_err = max(_main_path_err(rac, captured), recipe["err"])
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_fwd.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:184",
-        "launches": k1_inference + train["k1"] + k1_cli,
+        "launches": k1_inference + train["k1"] + k1_cli + recipe["k1"],
         "launches_by_path": {"inference": k1_inference, "training": train["k1"],
-                             "cli": k1_cli},
+                             "cli": k1_cli, "recipe": recipe["k1"]},
         "max_abs_err": max_err,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
@@ -517,8 +539,9 @@ def main() -> int:
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_adj.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:519",
-        "launches": train["k2"],
-        "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0},
+        "launches": train["k2"] + recipe["k2"],
+        "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0,
+                             "recipe": recipe["k2"]},
         "max_abs_err": train["adj_err"],
         "ms": train["adj_ms"],
         "plain_ms": train["adj_plain_ms"],
@@ -918,7 +941,7 @@ def phase_training(rac, card) -> dict:
     assert k1 == n and k2 == n, (k1, k2, n)
     assert totals[-1] < totals[0], totals
 
-    _profile_train_step(trainer, card)
+    busy = _profile_train_step(trainer, card)
 
     # K2 (and K1) at the training path's own box-pool inputs
     store = []
@@ -974,7 +997,9 @@ def phase_training(rac, card) -> dict:
          f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms by {fwd_by}, wrapper/bound "
          f"{fwd_ms / fwd_bound:.2f}x; record == _prepare on {n_rec} ROIs ({bumped} bumped) "
          f"({card})")
-    return dict(k1=k1, k2=k2, rois=rois, adj_err=err, adj_ms=adj_ms,
+    return dict(k1=k1, k2=k2, rois=rois, adj_err=err, adj_ms=adj_ms, busy=busy,
+                steps_per_s=len(timed) / t_timed,
+                images_per_s=sc.ims_per_batch * len(timed) / t_timed,
                 adj_kernel_ms=adj_kernel_ms, adj_plain_ms=adj_plain_ms,
                 adj_bound_ms=bound, adj_bound_by=by, adj_atomics=atomics, batch=batch,
                 k1_train=dict(ms=fwd_ms, kernel_ms=fwd_kernel_ms, plain_ms=fwd_plain_ms,
@@ -1022,9 +1047,9 @@ def _adjoint_atomics(rac, pr, c: int) -> int:
     return int((covered(ry) * covered(rx))[valid].sum()) * (c // 4)
 
 
-def _profile_train_step(trainer, card) -> None:
+def _profile_train_step(trainer, card, tag: str = "profile-train") -> float:
     """One warm training step under torch.profiler: device-busy share,
-    top kernels by device time and K2's share."""
+    top kernels by device time and K2's share.  Returns the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1037,14 +1062,15 @@ def _profile_train_step(trainer, card) -> None:
     total = sum(by_name.values())
     adj = sum(v for k, v in by_name.items() if "roi_align_adj" in k)
     fwd = sum(v for k, v in by_name.items() if "roi_align_fwd" in k)
-    _log(f"[profile-train] one warm step of {trainer.cfg.solver.ims_per_batch} images: wall "
+    _log(f"[{tag}] one warm step of {trainer.cfg.solver.ims_per_batch} images: wall "
          f"{wall_us / 1e3:.3f} ms under the profiler, device busy {busy / 1e3:.3f} ms "
          f"({100 * busy / wall_us:.1f}%), {n} kernels, kernel time {total / 1e3:.3f} ms; "
          f"K2 {adj / 1e3:.3f} ms ({100 * adj / max(total, 1e-9):.2f}%), K1 {fwd / 1e3:.3f} ms "
          f"({100 * fwd / max(total, 1e-9):.2f}%) ({card})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        _log(f"[profile-train]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  "
+        _log(f"[{tag}]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  "
              f"{name[:110]}")
+    return busy / wall_us
 
 
 def _device_time(prof):
@@ -1206,23 +1232,501 @@ def _time_kernel(rac, feats, boxes, valid, p, sr, aligned) -> float:
     return _time_ms(lambda: rac._launch(feats, boxes, valid, opts, record, out))
 
 
-def _main_path_err(rac, captured) -> float:
-    """Max abs difference of kernel and plain version on the main path's
-    own pool inputs, held to the phase-2 tolerances."""
+class _record_pools:
+    """Keeps the inputs of the first `n` calls of `PlaneRCNN._pool`, on
+    every model, until `restore()`: the pool inputs of a path that builds
+    its own model (`train_net`, `Trainer.test`)."""
+
+    def __init__(self, n: int):
+        from articulation3d_tpu_torch.models.planercnn import PlaneRCNN
+        self.cls, self.orig, self.calls = PlaneRCNN, PlaneRCNN._pool, []
+
+        def rec(model, roi_feats, boxes, **kw):
+            if len(self.calls) < n:
+                self.calls.append(([f.detach() for f in roi_feats], boxes.detach(), kw))
+            return self.orig(model, roi_feats, boxes, **kw)
+
+        PlaneRCNN._pool = rec
+
+    def restore(self):
+        self.cls._pool = self.orig
+
+
+def _main_path_err(rac, captured, tag: str = "main-path") -> float:
+    """Max abs difference of kernel and plain version on a path's own pool
+    inputs (`PlaneRCNN._pool`'s arguments), held to the phase-2 tolerances:
+    1e-5 x max|plain| for float32 maps, 1e-2 x for bfloat16.  A training
+    pool goes through `multilevel_roi_align_train` (K1 inside the
+    autograd Function), an inference pool through the K1 wrapper."""
     import torch
-    err = 0.0
+    err, line = 0.0, []
     for roi_feats, boxes, kw in captured:
         args = dict(strides=STRIDES, output_size=kw["resolution"],
                     sampling_ratio=kw["sampling_ratio"], aligned=kw["aligned"],
                     valid=kw["valid"])
-        got = rac.multilevel_roi_align_cuda(roi_feats, boxes, **args)
-        want = rac.multilevel_roi_align_separable(roi_feats, boxes, **args)
-        torch.cuda.synchronize()
-        e = float((got - want).abs().max())
+        with torch.no_grad():
+            if kw.get("training"):
+                got = rac.multilevel_roi_align_train(roi_feats, boxes, impl="cuda", **args)
+            else:
+                got = rac.multilevel_roi_align_cuda(roi_feats, boxes, **args)
+            want = rac.multilevel_roi_align_separable(roi_feats, boxes, **args)
+        if boxes.is_cuda:
+            torch.cuda.synchronize()
+        e, scale = float((got - want).abs().max()), float(want.abs().max())
         tol = 1e-5 if roi_feats[0].dtype == torch.float32 else 1e-2
-        assert e <= tol * float(want.abs().max()), e
+        line.append(f"{'train' if kw.get('training') else 'infer'} P={kw['resolution']} "
+                    f"{tuple(boxes.shape[:2])} {str(roi_feats[0].dtype)[6:]} err {e:.3e} "
+                    f"(tol {tol * scale:.3e})")
+        assert e <= tol * scale, (e, tol * scale)
         err = max(err, e)
+    _log(f"[{tag}] K1 against the plain version on the path's own pool inputs: "
+         f"{'; '.join(line)}")
     return err
+
+
+# --------------------------------------------------------------------------- #
+# 9. the recipe: data path, stage 1 and 3 from the loader, evaluators, opt_arti
+# --------------------------------------------------------------------------- #
+
+# split -> (positive videos, records per positive video, negative videos,
+# records per negative video)
+RECIPE_SPLITS = {"train": (5, 8, 1, 8), "val": (2, 6, 1, 4), "test": (2, 6, 1, 4)}
+PLANE_KEY = "plane_ap@iou0.5normal30.0offset0.3"
+
+
+def _write_recipe_dataset(root: str, h: int = 480, w: int = 640, clip_frames: int = 32,
+                          seed: int = 0) -> dict:
+    """A synthetic dataset in the schema `tools/generate_arti.py` emits
+    (XYXY boxes, `bbox_mode` 0, contiguous `category_id` 0/1, integer
+    `image_id`, negative records with no annotations), under `root`:
+    `articulation/cached_set_{train,val,test}.json` and the same train and
+    val records as `scannet/cached_set_{train,val}.json`, frames in `arti/`,
+    u16 millimetre depth in `arti_depth/`.
+
+    Each video is a seeded noise scene (as `tools/make_soak_dataset.py`
+    draws it) `clip_frames` pixels wider than a frame, with 1-3 bright
+    rectangles, each with a dark axis line; frame t is the scene shifted t
+    pixels, named `{youtube11}_001_5_{t}.png`.  Annotations carry a polygon,
+    a unit normal, a plane and a rot or tran axis that misses the box
+    centre.  The val split's positive videos are also written whole as
+    `clips/{video_id}.mp4`.  Returns {split: records}."""
+    import cv2
+
+    from articulation3d_tpu_torch.video.io import write_video
+
+    for d in ("arti", "arti_depth", "articulation", "scannet", "clips"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rs = np.random.RandomState(seed)
+    ramp = (1500 + np.arange(h)[:, None] * 4 + np.arange(w)[None, :] % 128).astype(np.uint16)
+    cw = (w - clip_frames) // 3                       # one object per column
+    out = {}
+    for split, (n_pos, per_pos, n_neg, per_neg) in RECIPE_SPLITS.items():
+        records = []
+        for v in range(n_pos + n_neg):
+            yt = (split.upper() + "XXXXX")[:5] + f"{v:06d}"
+            positive = v < n_pos
+            base = rs.randint(0, 90, (h, w + clip_frames, 3)).astype(np.uint8)
+            stripes = (np.arange(h)[:, None] // 16 % 2) * 25
+            base = np.clip(base + stripes[..., None], 0, 255).astype(np.uint8)
+            objects = []
+            for j in range(rs.randint(1, 4) if positive else 0):
+                bw, bh = rs.uniform(0.35, 0.85) * cw, rs.uniform(0.15, 0.4) * h
+                x1 = clip_frames + j * cw + rs.uniform(0, cw - bw)
+                y1 = rs.uniform(0.05 * h, 0.95 * h - bh)
+                x2, y2 = x1 + bw, y1 + bh
+                cat = (v + j) % 2
+                axis = ([x1 + 0.15 * bw, y1, x1 + 0.15 * bw, y2] if cat == 0
+                        else [x1, y1 + 0.7 * bh, x2, y1 + 0.7 * bh])
+                color = tuple(int(c) for c in rs.randint(180, 255, 3))
+                cv2.rectangle(base, (int(x1), int(y1)), (int(x2), int(y2)), color, -1)
+                cv2.line(base, (int(axis[0]), int(axis[1])), (int(axis[2]), int(axis[3])),
+                         (30, 30, 30), 3)
+                normal = rs.randn(3) * [0.3, 0.3, 0.0] + [0.0, 0.0, 1.0]
+                normal = (normal / np.linalg.norm(normal)).tolist()
+                objects.append((x1, y1, x2, y2, cat, axis, normal,
+                                (np.asarray(normal) * rs.uniform(1.0, 4.0)).tolist()))
+            frames = [np.ascontiguousarray(base[:, t:t + w]) for t in range(clip_frames)]
+            offsets = (np.linspace(0, clip_frames - 1, per_pos).round().astype(int)
+                       if positive else np.arange(per_neg))
+            for t in offsets:
+                stem = f"{yt}_001_5_{t}"
+                path = os.path.join(root, "arti", stem + ".png")
+                depth = os.path.join(root, "arti_depth", stem + ".png")
+                cv2.imwrite(path, frames[t])
+                cv2.imwrite(depth, ramp + np.uint16(10 * (len(records) % 50)))
+                annos = []
+                for x1, y1, x2, y2, cat, axis, normal, plane in objects:
+                    bx = [x1 - t, y1, x2 - t, y2]
+                    ax = [axis[0] - t, axis[1], axis[2] - t, axis[3]]
+                    annos.append({"bbox": bx, "bbox_mode": 0, "category_id": cat,
+                                  "segmentation": [[bx[0], bx[1], bx[2], bx[1], bx[2], bx[3],
+                                                    bx[0], bx[3]]],
+                                  "rot_axis": ax if cat == 0 else None,
+                                  "tran_axis": ax if cat == 1 else None,
+                                  "normal": normal, "plane": plane})
+                records.append({"file_name": path, "image_id": len(records), "height": h,
+                                "width": w, "depth_path": depth, "annotations": annos})
+            if split == "val" and positive:
+                write_video(os.path.join(root, "clips", f"{yt}_1_5.mp4"), frames, fps=30.0)
+        for sub, names in (("articulation", ["arti_rot", "arti_tran"]),
+                           ("scannet", ["plane", "plane2"])):
+            if sub == "scannet" and split == "test":
+                continue
+            with open(os.path.join(root, sub, f"cached_set_{split}.json"), "w") as f:
+                json.dump({"info": {"description": f"synthetic {split} set"},
+                           "categories": [{"id": i, "name": n} for i, n in enumerate(names)],
+                           "data": records}, f)
+        out[split] = records
+    return out
+
+
+def _known_answer_predictions(records, rotate_axes: bool = False) -> list:
+    """The GT of `records` as predictions: score 1, exact XYWH boxes, RLE
+    masks of the polygons, the GT axes encoded about the box centres (their
+    line normals turned by 90 degrees with `rotate_axes`), and planes whose
+    normals the evaluator's ScanNet -> SunCG swap maps onto the GT normals.
+    Negative records predict nothing."""
+    from articulation3d_tpu_torch.data.axis_codec import axis_to_angle_offset
+    from articulation3d_tpu_torch.data.mapper import polygons_to_bitmask
+    from articulation3d_tpu_torch.utils.rle import rle_encode
+    preds = []
+    for rec in records:
+        inst, rot, tran, planes = [], [], [], []
+        for a in rec["annotations"]:
+            x1, y1, x2, y2 = a["bbox"]
+            mask = polygons_to_bitmask(a["segmentation"], rec["height"], rec["width"])
+            inst.append({"image_id": rec["image_id"], "category_id": a["category_id"],
+                         "bbox": [x1, y1, x2 - x1, y2 - y1], "score": 1.0,
+                         "segmentation": rle_encode(mask)})
+            axis = a["rot_axis"] if a["rot_axis"] is not None else a["tran_axis"]
+            enc = axis_to_angle_offset(np.asarray([axis], np.float64),
+                                       np.asarray([[(x1 + x2) / 2, (y1 + y2) / 2]]))[0]
+            enc = enc.astype(np.float64)
+            if rotate_axes:
+                enc[0], enc[1] = enc[1], -enc[0]
+            rot.append(enc[:3])
+            tran.append(enc[:2])
+            n = a["normal"]
+            planes.append([n[0], n[2], n[1]])
+        preds.append({"image_id": rec["image_id"], "file_name": rec["file_name"],
+                      "instances": inst, "pred_rot_axis": np.asarray(rot).reshape(-1, 3),
+                      "pred_tran_axis": np.asarray(tran).reshape(-1, 2),
+                      "pred_plane": np.asarray(planes).reshape(-1, 3)})
+    return preds
+
+
+def _check_eval_values(results, dataset_name: str) -> list:
+    """Every value finite, or NaN where the COCO protocol gives NaN: an
+    area range or a category without GT in the dataset.  Returns the NaN
+    keys."""
+    import math
+
+    from articulation3d_tpu_torch.data.catalog import get_dataset_dicts, get_metadata
+    from articulation3d_tpu_torch.evaluation import convert_to_coco_dict
+    from articulation3d_tpu_torch.evaluation.coco_eval import AREA_RANGES
+    anns = convert_to_coco_dict(get_dataset_dicts(dataset_name),
+                                get_metadata(dataset_name))["annotations"]
+    names = {c: n for c, n in zip(get_metadata(dataset_name).thing_dataset_id_to_contiguous_id,
+                                  get_metadata(dataset_name).thing_classes)}
+    by_range = {"APs": "small", "APm": "medium", "APl": "large"}
+    nan = []
+    for k, v in results.items():
+        v = float(v)
+        if math.isfinite(v):
+            continue
+        assert math.isnan(v), (k, v)
+        metric = k.split("/", 1)[-1]
+        if metric in by_range:
+            lo, hi = AREA_RANGES[by_range[metric]]
+            assert not any(lo <= a["area"] < hi for a in anns), (k, "has GT in its range")
+        elif metric.startswith("AP-"):
+            assert not any(names[a["category_id"]] == metric[3:] for a in anns), (k, "has GT")
+        else:
+            raise AssertionError(f"{k} is NaN")
+        nan.append(k)
+    return nan
+
+
+def _recipe_argv(stage: str, out: str, weights: str, ckpt_period: int, *flags) -> list:
+    """`train_net`'s command line for one stage of the recipe: the shipped
+    config with (b)'s overrides, the flags before the overrides."""
+    return ["--config-file", os.path.join(ROOT, "configs", f"{stage}.yaml"), *flags,
+            "weights", weights, "output_dir", out, "solver.warmup_iters", "0",
+            "solver.base_lr", "0.002", "test.eval_period", "0",
+            "solver.checkpoint_period", str(ckpt_period), "model.roi_pooler_impl", "cuda",
+            "model.roi_heads.score_thresh_test", "0.0"]
+
+
+def _train_rates(recs, ims: int, warm: int = 2):
+    """(steps/s, images/s, steps/s of the step alone, mean batch wait s)
+    over the records after `warm`; a step's wall is its wait for the batch
+    plus the step."""
+    timed = recs[warm:]
+    wall = sum(r["data_s"] + r["wall_s"] for r in timed)
+    step = sum(r["wall_s"] for r in timed)
+    return (len(timed) / wall, ims * len(timed) / wall, len(timed) / step,
+            float(np.mean([r["data_s"] for r in timed])))
+
+
+def phase_recipe(rac, card, phase5) -> dict:
+    """(a) the dataset; (b) stage 1 through `train_net` from the loader;
+    (c) `--eval-only --resume` on arti_val; (d) stage 3 from (b)'s
+    checkpoint, then ScannetEvaluator; (e) the evaluators' known answers;
+    (f) `opt_arti` in two shards, then merged.  Returns K1's and K2's
+    launches over (b)-(f)."""
+    import shutil
+
+    import torch
+
+    from articulation3d_tpu_torch import opt_arti, train_net
+    from articulation3d_tpu_torch.config import load_config
+    from articulation3d_tpu_torch.data.catalog import get_dataset_dicts, register_builtin_datasets
+    import cv2
+
+    from articulation3d_tpu_torch.data.mapper import (DetectionLoader, PlaneRCNNMapper,
+                                                      read_image_bgr)
+    from articulation3d_tpu_torch.evaluation import ArtiEvaluator, ScannetEvaluator
+    from articulation3d_tpu_torch.train.checkpoint import latest_checkpoint
+
+    data_root = os.path.join(ROOT, ".chip_smoke", "datasets")
+    out = os.path.join(ROOT, ".chip_smoke", "recipe")
+    for d in (data_root, out):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(out)
+    launches = {"k1": 0, "k2": 0}
+
+    def count(fn):
+        rac.multilevel_roi_align_cuda.launches = 0
+        rac.multilevel_roi_align_adjoint_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        k1 = rac.multilevel_roi_align_cuda.launches
+        k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+        launches["k1"] += k1
+        launches["k2"] += k2
+        return res, k1, k2, time.perf_counter() - t0
+
+    # (a) the dataset
+    t0 = time.perf_counter()
+    splits = _write_recipe_dataset(data_root)
+    register_builtin_datasets(data_root)
+    n = {s: (len(r), sum(1 for x in r if not x["annotations"]),
+             sum(len(x["annotations"]) for x in r)) for s, r in splits.items()}
+    _log(f"[recipe] dataset under .chip_smoke/datasets in {time.perf_counter() - t0:.2f} s: "
+         f"(records, negatives, objects) per split {n}; 480x640 frames, u16 mm depth, "
+         f"2 val clips of 32 frames")
+
+    # (b) stage 1 from the loader, through train_net
+    init = os.path.join(out, "init_weights.pth")
+    heads = ("roi_heads.mask_head.", "roi_heads.plane_head.", "roi_heads.axis_head.",
+             "depth_head.")
+    torch.save({k: v for k, v in _train_weights().items() if not k.startswith(heads)}, init)
+    out1 = os.path.join(out, "stage1")
+    torch.cuda.reset_peak_memory_stats()
+    (trainer, recs), k1, k2, wall = count(lambda: train_net.main(
+        _recipe_argv("step1_bbox", out1, init, 22, "--max-iter", "22")))
+    peak = torch.cuda.max_memory_allocated()
+    cfg1 = trainer.cfg
+    ims = cfg1.solver.ims_per_batch
+    sps, ips, step_sps, wait = _train_rates(recs, ims)
+    totals = [r["total_loss"] for r in recs]
+    _log(f"[recipe-stage1] train_net on configs/step1_bbox.yaml (ims {ims}, RPN "
+         f"{cfg1.model.rpn.pre_nms_topk_train}/{cfg1.model.rpn.post_nms_topk_train}, "
+         f"{cfg1.model.roi_heads.batch_size_per_image} ROIs per image, pooler "
+         f"{cfg1.model.roi_pooler_impl}) from arti_train ({len(splits['train'])} records) "
+         f"through PrefetchLoader, weights = random_state_dict(0) with the phase-5 damping: "
+         f"{len(recs)} steps in {wall:.3f} s; 20 timed steps {sps:.4f} steps/s, {ips:.3f} "
+         f"images/s (the step alone {step_sps:.4f} steps/s, mean wait for a batch "
+         f"{1e3 * wait:.2f} ms) against phase 5's synthetic batch {phase5['steps_per_s']:.4f} "
+         f"steps/s, {phase5['images_per_s']:.3f} images/s ({card})")
+    _log(f"[recipe-stage1] launches per step K1 {k1 / len(recs):.2f} K2 {k2 / len(recs):.2f}; "
+         f"max_memory_allocated {peak / 2**30:.3f} GiB; total_loss first {totals[0]:.6f} last "
+         f"{totals[-1]:.6f}; curve {['%.4f' % t for t in totals]}")
+    assert all(np.isfinite(v) for r in recs for v in r.values()), recs
+    assert k1 == len(recs) == 22 and k2 == len(recs), (k1, k2)
+    assert np.mean(totals[-3:]) < np.mean(totals[:3]), totals
+    ckpt1 = latest_checkpoint(out1)
+    assert ckpt1 and ckpt1.endswith("model_0000021.pth"), ckpt1
+    busy = _profile_train_step(trainer, card, tag="profile-recipe")
+    trainer._batches.close()            # its prefetch thread stops: the mapper runs alone
+    for name, cfg in (("stage 1", cfg1), ("stage 3", load_config(
+            os.path.join(ROOT, "configs", "step3_plane.yaml")))):
+        records = get_dataset_dicts(cfg.datasets_train[0])
+        loader = DetectionLoader(records, PlaneRCNNMapper(cfg, is_train=True),
+                                 cfg.solver.ims_per_batch, shuffle=True, seed=cfg.seed)
+        t0 = time.perf_counter()
+        batches = list(loader.epoch(0))
+        dt = time.perf_counter() - t0
+        n_img = sum(len(b["image_id"]) for b in batches)
+        t0 = time.perf_counter()
+        for r in records:
+            read_image_bgr(r["file_name"], r["height"], r["width"])
+        t_read = (time.perf_counter() - t0) / len(records)
+        t0 = time.perf_counter()
+        for r in records:
+            cv2.imread(r["depth_path"], cv2.IMREAD_UNCHANGED)
+        t_depth = (time.perf_counter() - t0) / len(records)
+        _log(f"[recipe-mapper] {name} mapper alone, one epoch of {cfg.datasets_train[0]} "
+             f"({n_img} images in {len(batches)} batches of {cfg.solver.ims_per_batch}, one "
+             f"thread): {dt:.4f} s = {n_img / dt:.2f} images/s, {1e3 * dt / n_img:.2f} ms per "
+             f"image; of that the frame's imread + resize {1e3 * t_read:.2f} ms (a u16 depth "
+             f"PNG's imread {1e3 * t_depth:.2f} ms); batch keys "
+             f"{sorted(k for k, v in batches[0].items() if isinstance(v, np.ndarray))} ({card})")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) --eval-only --resume on arti_val, every detection kept
+    pools = _record_pools(3)
+    try:
+        (trainer, results), k1c, _, wall = count(lambda: train_net.main(
+            _recipe_argv("step1_bbox", out1, init, 22, "--eval-only", "--resume")))
+    finally:
+        pools.restore()
+    captured = pools.calls
+    res = results["arti_val"]
+    walls = trainer.test_walls["arti_val"]
+    nan = _check_eval_values(res, "arti_val")
+    _log(f"[recipe-eval] --eval-only --resume at iteration {trainer.iter} on arti_val (batch "
+         f"{max(ims, 1)}, score_thresh_test 0): {wall:.3f} s = mapper {walls['mapper']:.4f} s + "
+         f"inference {walls['inference']:.4f} s + RLE of the masks {walls['rle']:.4f} s + "
+         f"evaluator {walls['evaluator']:.4f} s (rest: build and resume); K1 launches {k1c}; "
+         f"NaN (no GT in the range or category) {nan} ({card})")
+    _log(f"[recipe-eval] ArtiEvaluator {json.dumps({k: float(v) for k, v in res.items()})}")
+    assert trainer.iter == 22 and trainer.model.training
+    assert {"bbox/AP", "segm/AP", "auroc", "bbox - arti_rot", "bbox+axis - arti_tran"} <= set(res)
+    preds_pth = os.path.join(out1, "instances_predictions.pth")
+    dumped = torch.load(preds_pth, weights_only=False)
+    assert len(dumped) == len(splits["val"])
+    assert all(len(p["instances"]) == 100 for p in dumped), [len(p["instances"]) for p in dumped]
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) stage 3, warm-started from (b)'s checkpoint, then ScannetEvaluator
+    out3 = os.path.join(out, "stage3")
+    torch.cuda.reset_peak_memory_stats()
+    pools = _record_pools(3)                        # the first step's three pools
+    try:
+        (trainer, recs3), k1d, k2d, wall = count(lambda: train_net.main(
+            _recipe_argv("step3_plane", out3, ckpt1, 12, "--max-iter", "12")))
+    finally:
+        pools.restore()
+    captured += pools.calls
+    peak = torch.cuda.max_memory_allocated()
+    cfg3 = trainer.cfg
+    sps3, ips3, step3, wait3 = _train_rates(recs3, cfg3.solver.ims_per_batch)
+    batch = next(trainer.loader.loader.epoch(0))
+    _log(f"[recipe-stage3] train_net on configs/step3_plane.yaml (ims "
+         f"{cfg3.solver.ims_per_batch}, frozen {list(cfg3.model.freeze)}) from scannet_train, "
+         f"weights = the stage-1 checkpoint {os.path.relpath(ckpt1, ROOT)}: {len(recs3)} steps in "
+         f"{wall:.3f} s; 10 timed steps {sps3:.4f} steps/s, {ips3:.3f} images/s (the step alone "
+         f"{step3:.4f} steps/s, mean wait {1e3 * wait3:.2f} ms); launches per step K1 "
+         f"{k1d / len(recs3):.2f} K2 {k2d / len(recs3):.2f}; max_memory_allocated "
+         f"{peak / 2**30:.3f} GiB; batch {batch['gt_masks_packed'].dtype} gt_masks_packed "
+         f"{batch['gt_masks_packed'].shape}, {batch['gt_depth_mm'].dtype} gt_depth_mm "
+         f"{batch['gt_depth_mm'].shape}; losses first {dict((k, round(v, 4)) for k, v in recs3[0].items())} "
+         f"last total {recs3[-1]['total_loss']:.4f} ({card})")
+    assert all(np.isfinite(v) for r in recs3 for v in r.values()), recs3
+    assert batch["gt_masks_packed"].dtype == np.uint8 and batch["gt_depth_mm"].dtype == np.uint16
+    assert {"loss_mask", "loss_plane", "depth_loss"} <= set(recs3[0]), set(recs3[0])
+    assert k1d > 0 and k2d == 0, (k1d, k2d)
+    pools = _record_pools(3)                        # the first batch's three pools
+    try:
+        results3, k1e, _, wall = count(trainer.test)
+    finally:
+        pools.restore()
+    captured += pools.calls
+    res3 = results3["scannet_val"]
+    walls = trainer.test_walls["scannet_val"]
+    _log(f"[recipe-eval3] test() on scannet_val (batch {cfg3.solver.ims_per_batch}, "
+         f"score_thresh_test 0, depth override of 100 masks per image): {wall:.3f} s = mapper "
+         f"{walls['mapper']:.4f} s + inference {walls['inference']:.4f} s + RLE "
+         f"{walls['rle']:.4f} s + evaluator {walls['evaluator']:.4f} s; K1 launches {k1e} "
+         f"({card})")
+    _log(f"[recipe-eval3] ScannetEvaluator {json.dumps({k: float(v) for k, v in res3.items()})}")
+    assert trainer.model.training and PLANE_KEY in res3 and "depth_l1_dist" in res3
+    assert all(np.isfinite(float(v)) for v in res3.values()), res3
+    ckpt3 = latest_checkpoint(out3)
+    del trainer
+    err = _main_path_err(rac, captured, tag="recipe-pools")
+    assert any(kw.get("training") for _, _, kw in captured), "no stage-3 training pool"
+    del captured
+    torch.cuda.empty_cache()
+
+    # (e) the evaluators' known answers
+    t0 = time.perf_counter()
+    val = get_dataset_dicts("arti_val")
+    known = {}
+    for rotate in (False, True):
+        ev = ArtiEvaluator("arti_val", output_dir=os.path.join(out, "known"))
+        ev._predictions = _known_answer_predictions(val, rotate_axes=rotate)
+        known[rotate] = ev.evaluate()
+    sev = ScannetEvaluator("scannet_val")
+    scan_val = get_dataset_dicts("scannet_val")
+    for rec, p in zip(scan_val, _known_answer_predictions(scan_val)):
+        sev.process([{"image_id": rec["image_id"], "file_name": rec["file_name"]}],
+                    [{"instances": p["instances"],
+                      "pred_plane": [a["plane"] for a in rec["annotations"]]}])
+    scan = sev.evaluate()
+    cats = ("arti_rot", "arti_tran")
+    pick = lambda r, m: {c: r[f"{m} - {c}"] for c in cats}
+    _log(f"[recipe-known] GT as predictions on arti_val: bbox {pick(known[False], 'bbox')}, "
+         f"bbox+axis {pick(known[False], 'bbox+axis')}, bbox+normal "
+         f"{pick(known[False], 'bbox+normal')}, auroc {known[False]['auroc']}, bbox/AP "
+         f"{known[False]['bbox/AP']}; axes turned 90 deg: bbox+axis "
+         f"{pick(known[True], 'bbox+axis')}; ScannetEvaluator, GT planes, no depth: "
+         f"{PLANE_KEY} {scan[PLANE_KEY]}, box {scan['box_ap@0.5']}, mask {scan['mask_ap@0.5']} "
+         f"({time.perf_counter() - t0:.3f} s)")
+    for c in cats:
+        assert known[False][f"bbox - {c}"] == 1.0 and known[False][f"bbox+axis - {c}"] == 1.0
+        assert known[True][f"bbox+axis - {c}"] == 0.0
+    assert known[False]["auroc"] == 1.0 and scan[PLANE_KEY] == 1.0
+
+    # (f) opt_arti on the two val clips, two shards, then the merge
+    import yaml
+    with open(os.path.join(ROOT, "configs", "config.yaml")) as f:
+        opt_cfg = yaml.safe_load(f)
+    opt_cfg["weights"] = ckpt3
+    opt_cfg["model"]["roi_heads"] = {"score_thresh_test": 0.0}
+    opt_cfg["model"]["roi_pooler_impl"] = "cuda"
+    cfg_path = os.path.join(out, "opt_arti.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(opt_cfg, f)
+    opt_out = os.path.join(out, "opt_arti")
+    argv = ["--config", cfg_path, "--input", preds_pth, "--output", opt_out,
+            "--dataset", "arti_val", "--video-root", os.path.join(data_root, "clips"),
+            "--conf-threshold", "0"]
+    env = {k: os.environ.get(k) for k in ("SLURM_ARRAY_TASK_ID", "SLURM_ARRAY_TASK_MAX")}
+    shard_walls, k1f = [], 0
+    try:
+        os.environ["SLURM_ARRAY_TASK_MAX"] = "1"
+        for task in ("0", "1"):
+            os.environ["SLURM_ARRAY_TASK_ID"] = task
+            r, k1s, _, wall = count(lambda: opt_arti.main(argv))
+            assert r is None
+            shard_walls.append(wall)
+            k1f += k1s
+        del os.environ["SLURM_ARRAY_TASK_ID"]
+        merged, _, _, merge_wall = count(lambda: opt_arti.main(argv + ["--load-results"]))
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shards = sorted(n for n in os.listdir(opt_out) if n.startswith("predictions_"))
+    n_pred = sum(len(torch.load(os.path.join(opt_out, s), weights_only=False)["predictions"])
+                 for s in shards)
+    nan = _check_eval_values(merged, "arti_val")
+    _log(f"[recipe-opt_arti] 2 shards over 3 val videos (2 clips of 32 frames at 480x640, one "
+         f"negative video without a clip): walls {['%.3f' % w for w in shard_walls]} s, merge "
+         f"{merge_wall:.3f} s; K1 launches {k1f}; {shards} with {n_pred} predictions; NaN "
+         f"{nan} ({card})")
+    _log(f"[recipe-opt_arti] merged ArtiEvaluator {json.dumps({k: float(v) for k, v in merged.items()})}")
+    assert shards == ["predictions_0000.pth", "predictions_0001.pth"], shards
+    assert n_pred == 2 * RECIPE_SPLITS["val"][1] and k1f >= 2 * 4 * 3, (n_pred, k1f)
+    assert {"bbox - arti_rot", "auroc"} <= set(merged)
+    return dict(k1=launches["k1"], k2=launches["k2"], busy=busy, err=err)
 
 
 if __name__ == "__main__":

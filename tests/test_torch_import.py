@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no JAX package, and no silent CPU fallback.
 
   * a fresh interpreter imports every module of `articulation3d_tpu_torch`
-    (the training slice's `train.*` and the CLI's temporal, export and vis
-    modules among them) and `chip_smoke.py` and finds neither `jax`,
-    `flax`, `optax` nor `articulation3d_tpu` in `sys.modules`;
+    (the training slice's `train.*`, the CLI's temporal, export and vis
+    modules, and the data path, evaluators, `train_net` and `opt_arti`
+    among them) and `chip_smoke.py` and finds neither `jax`, `flax`,
+    `optax` nor `articulation3d_tpu` in `sys.modules`;
   * no import statement in the port or in `chip_smoke.py` names them;
   * entry points called without a device run on the card, and raise where
     there is none;
@@ -43,6 +44,11 @@ _CLI_MODULES = ("temporal.tracker", "temporal.kernels", "temporal.optimizer",
                 "export.mesh", "export.obj_writer", "export.save_model",
                 "vis.visualizer", "video.io", "data.axis_codec", "data.catalog",
                 "utils.metrics", "native")
+_DATA_EVAL_MODULES = ("utils.rle", "utils.vocap", "utils.tables", "data.mapper",
+                      "evaluation.coco_index", "evaluation.detectron2coco",
+                      "evaluation.coco_eval", "evaluation.arti_evaluation",
+                      "evaluation.scannet_evaluation", "train.vis_hook", "train_net",
+                      "opt_arti")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -55,7 +61,7 @@ def test_importing_the_port_loads_no_jax():
     imported = out.stdout.split("IMPORTED=")[1].split("\n")[0].split(",")
     for m in _TRAIN_MODULES:
         assert f"articulation3d_tpu_torch.train.{m}" in imported, m
-    for m in _CLI_MODULES:
+    for m in _CLI_MODULES + _DATA_EVAL_MODULES:
         assert f"articulation3d_tpu_torch.{m}" in imported, m
 
 
@@ -66,6 +72,8 @@ def test_no_import_statement_names_jax():
     assert len(files) > 10
     assert {f"{m}.py" for m in _TRAIN_MODULES} <= {f.name for f in files
                                                    if f.parent.name == "train"}
+    names = {str(f.relative_to(PORT))[:-3].replace("/", ".") for f in files if PORT in f.parents}
+    assert set(_DATA_EVAL_MODULES) <= names
     for f in files:
         assert not pat.search(f.read_text()), f
 
