@@ -209,11 +209,13 @@ int launch(int T, cudaStream_t s, const Grads& gr, const Opts& o, int C, int cs,
 // gradients (B, H_l, W_l, C), zeroed by the caller; boxes (T, 4) float32
 // and record (T, 5) int32 are the forward's; g is the float32 pooled
 // cotangent (T, P, P, C) in [p, q, c] order.  C must be a multiple of 4,
-// every pointer 16-byte aligned.
+// every pointer 16-byte aligned.  The options, adaptive_cap included, are
+// the forward's.
 extern "C" int roi_align_adj(void* d2, void* d3, void* d4, void* d5, int h2,
                              int w2, int h3, int w3, int h4, int w4, int h5,
                              int w5, float s2, float s3, float s4, float s5, int C,
                              int P, int sampling_ratio, int aligned, int min_level,
+                             int adaptive_cap,
                              const void* boxes, const void* record, int n_per_image,
                              const void* g, int T, void* stream) {
   if (T <= 0) return 0;
@@ -231,6 +233,7 @@ extern "C" int roi_align_adj(void* d2, void* d3, void* d4, void* d5, int h2,
   o.sampling_ratio = sampling_ratio;
   o.aligned = aligned;
   o.min_level = min_level;
+  o.adaptive_cap = adaptive_cap;
   o.scale[0] = s2; o.scale[1] = s3; o.scale[2] = s4; o.scale[3] = s5;
   o.h[0] = h2; o.h[1] = h3; o.h[2] = h4; o.h[3] = h5;
   o.w[0] = w2; o.w[1] = w3; o.w[2] = w4; o.w[3] = w5;

@@ -248,12 +248,14 @@ void dispatch(int T_rois, cudaStream_t s, const Levels& lv, const Opts& o, int C
 // boxes (T, 4) float32, valid (T,) bool or null, record (T, 5) int32 and
 // out (T, P, P, C) float32 are written; T = images x n_per_image.  C must
 // be a multiple of 8 (bfloat16) or 4 (float32), every pointer 16-byte
-// aligned; scale_l = 1 / stride_l as float32.
+// aligned; scale_l = 1 / stride_l as float32; adaptive_cap caps the
+// samples per bin and axis at sampling ratio 0 (0: uncapped).
 extern "C" int roi_align_fwd(const void* f2, const void* f3, const void* f4,
                              const void* f5, int dtype, int h2, int w2, int h3,
                              int w3, int h4, int w4, int h5, int w5, float s2,
                              float s3, float s4, float s5, int C, int P,
                              int sampling_ratio, int aligned, int min_level,
+                             int adaptive_cap,
                              const void* boxes, const void* valid, int n_per_image,
                              void* record, void* out, int T, void* stream) {
   if (T <= 0) return 0;
@@ -269,6 +271,7 @@ extern "C" int roi_align_fwd(const void* f2, const void* f3, const void* f4,
   o.sampling_ratio = sampling_ratio;
   o.aligned = aligned;
   o.min_level = min_level;
+  o.adaptive_cap = adaptive_cap;
   o.scale[0] = s2; o.scale[1] = s3; o.scale[2] = s4; o.scale[3] = s5;
   o.h[0] = h2; o.h[1] = h3; o.h[2] = h4; o.h[3] = h5;
   o.w[0] = w2; o.w[1] = w3; o.w[2] = w4; o.w[3] = w5;

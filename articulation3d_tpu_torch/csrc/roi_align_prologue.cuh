@@ -6,7 +6,10 @@
 // prologue, articulation3d_tpu/ops/roi_align_pallas.py:120-171, 273-375):
 //   * detectron2's sqrt-area level (canonical size 224, level 4, eps 1e-8);
 //   * the window-overflow bump of `pallas_level_idx`;
-//   * the sample start, bin size and adaptive sample count (capped at 4);
+//   * the sample start, bin size and adaptive sample count: ceil(bin), at
+//     least 1, uncapped as torchvision samples (Opts::adaptive_cap = 0) or
+//     at most Opts::adaptive_cap (the JAX package caps at 4).  Nothing here
+//     bounds the count: `sample`, `extent` and `build_row` loop to it;
 //   * the window origin y0/x0 (x floored to a multiple of 8, both capped at
 //     the padded extents), the tile counts nty/ntx (nty = 0: invalid ROI);
 //   * the separable weight rows Ry (P x 64) and Rx (P x 80): bilinear
@@ -35,7 +38,6 @@ constexpr int kTileX = 40;
 constexpr int kSpanY = 2 * kTileY;
 constexpr int kSpanX = 2 * kTileX;
 constexpr int kMaxP = 16;
-constexpr int kAdaptiveCap = 4;
 constexpr int kRecord = 5;   // level, y0, x0, nty, ntx (int32 per ROI)
 
 // What the kernels need to know of the options and the pyramid.
@@ -44,6 +46,7 @@ struct Opts {
   int sampling_ratio;
   int aligned;
   int min_level;
+  int adaptive_cap;  // most samples per bin and axis at ratio 0; 0: uncapped
   float scale[4];   // 1 / stride, as float32 (the torch table's values)
   int h[4];         // real level extents
   int w[4];
@@ -79,9 +82,12 @@ __device__ __forceinline__ Axis axis_params(float lo, float hi, float scale,
   Axis ax;
   ax.start = a;
   ax.bin = __fmul_rn(len, recip(static_cast<float>(o.P)));
-  ax.n = o.sampling_ratio > 0
-             ? o.sampling_ratio
-             : min(max(static_cast<int>(ceilf(ax.bin)), 1), kAdaptiveCap);
+  if (o.sampling_ratio > 0) {
+    ax.n = o.sampling_ratio;
+  } else {
+    ax.n = max(static_cast<int>(ceilf(ax.bin)), 1);
+    if (o.adaptive_cap > 0) ax.n = min(ax.n, o.adaptive_cap);
+  }
   return ax;
 }
 

@@ -122,14 +122,14 @@ def build_model(config, device=None):
     checkpoint of `train.Trainer`), else seeded random weights."""
     from .models.planercnn import build_model as build_planercnn
     from .structures import resolve_device
-    from .weights import load_torch_state_dict, random_state_dict
+    from .weights import load_torch_state_dict, random_state_dict, schema_options
 
     device = resolve_device(device)
     if config.weights:
         state_dict = load_torch_state_dict(config.weights)
     else:
         print(f"no weights in the config: random weights from seed {config.seed}")
-        state_dict = random_state_dict(config.seed)
+        state_dict = random_state_dict(config.seed, **schema_options(config.model))
     return build_planercnn(config, device=device, state_dict=state_dict)
 
 

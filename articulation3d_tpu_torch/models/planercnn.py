@@ -5,6 +5,7 @@ Counterpart of `articulation3d_tpu/models/planercnn.py` (`features`,
 
     R50 -> FPN -> RPN -> box pool + box head + class-wise NMS ->
       cascade on the final boxes: mask -> plane -> axis    -> depth head
+      [-> refine head: refined full-image masks and plane offsets]
 
 Module names are the detectron2 checkpoint's (`backbone`,
 `proposal_generator`, `roi_heads.{box_head,box_predictor,mask_head,
@@ -18,12 +19,22 @@ weights float32); features, ROI outputs and depth are float32.  The ROI
 poolers take the p2..p5 maps channels-last, permuted once per forward;
 inference pools them in the compute dtype with the kernel, training pools
 float32 maps through `multilevel_roi_align_train` (K1 forward, K2
-backward).  The refine head is not ported yet.
+backward).
+
+With `refine_on` (and the mask, plane and depth heads) the refine head
+(`models/refine_head.py`) runs in float32 after the cascade, one image at
+a time (JAX vmaps it over the batch: the same numbers, at one image's
+activations).  Inference returns its masks as `full_masks` and its plane
+offsets as the planes; training runs the detection cascade without
+gradient on the sampled proposals and returns the refine head's inputs
+and logits as `outputs["refine"]` (JAX planercnn.py:261-277, 303-326,
+412-451).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -34,10 +45,12 @@ from ..ops.roi_align import multilevel_roi_align
 from ..ops.roi_align_cuda import (multilevel_roi_align_cuda,
                                  multilevel_roi_align_train)
 from ..structures import Detections, resolve_device
+from ..ops.mask_paste import paste_masks
 from .depth_head import DepthHead
 from .fpn import FPN
 from .heads import (AxisHead, BoxHead, BoxPredictor, MaskHead, PlaneHead,
                     fast_rcnn_inference)
+from .refine_head import RefineHead, refine_inference_masks
 from .resnet import ResNet
 from .rpn import RPN
 
@@ -66,8 +79,6 @@ class PlaneRCNN(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         mcfg = config.model
-        if mcfg.refine_on:
-            raise NotImplementedError("the refine head is not ported yet")
         self.config = config
         self.compute_dtype = (torch.bfloat16 if mcfg.dtype == "bfloat16"
                               else torch.float32)
@@ -76,6 +87,12 @@ class PlaneRCNN(nn.Module):
         self.roi_heads = ROIHeads(config)
         if mcfg.depth_on:
             self.depth_head = DepthHead(mcfg.depth_head, mcfg.fpn.out_channels)
+        if mcfg.refine_on:
+            self.refine_head = RefineHead(mcfg.refine_head)
+
+    def _refines(self) -> bool:
+        m = self.config.model
+        return m.refine_on and m.mask_on and m.plane_on and m.depth_on
 
     def _autocast(self, device: torch.device):
         if self.compute_dtype == torch.float32:
@@ -235,7 +252,41 @@ class PlaneRCNN(nn.Module):
         if mcfg.depth_on:
             with self._autocast(images.device):
                 result["depth"] = self.depth_head(feats).to(torch.float32)
+        if self._refines():
+            # the reference's eval path with REFINE_ON: soft masks pasted
+            # at threshold -1, gated by the box score threshold; the refine
+            # head replaces the masks and the planes
+            det = result["detections"]
+            refined = self._refine(images, det, result["depth"])
+            result["full_masks"] = torch.stack([
+                refine_inference_masks(lg, vl, h, w)
+                for lg, vl in zip(refined["logits"], refined["valid"])])
+            result["detections"] = dataclasses.replace(det, planes=refined["plane_params"])
         return result
+
+    def _refine(self, images: torch.Tensor, dets: Detections,
+                depth: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The refine pass shared by inference and training: soft masks
+        pasted at image resolution (threshold -1), valid where the score
+        exceeds `test.box_score_threshold`, and the raw 0..255 image
+        recovered by inverting the (linear) preprocess.  Returns logits
+        (B, D+1, hr, wr), plane_params (B, D, 3), soft_masks (B, D, H, W)
+        and valid (B, D)."""
+        cfg = self.config
+        h, w = images.shape[1:3]
+        valid = dets.valid & (dets.scores > cfg.test.box_score_threshold)
+        soft = torch.stack([
+            paste_masks(dets.masks[i].to(torch.float32), dets.boxes[i], valid[i], h, w,
+                        threshold=-1.0, nms=cfg.model.mask_head.nms)
+            for i in range(images.shape[0])])
+        mean = torch.tensor(cfg.input.pixel_mean, dtype=images.dtype, device=images.device)
+        std = torch.tensor(cfg.input.pixel_std, dtype=images.dtype, device=images.device)
+        raw = images * std + mean
+        outs = [self.refine_head(raw[i], soft[i], dets.planes[i].to(torch.float32),
+                                 depth[i], valid[i]) for i in range(images.shape[0])]
+        return {"logits": torch.stack([o[0] for o in outs]),
+                "plane_params": torch.stack([o[1] for o in outs]),
+                "soft_masks": soft, "valid": valid}
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         return self.inference(images)
@@ -305,7 +356,46 @@ class PlaneRCNN(nn.Module):
         if mcfg.depth_on and trains("depth_head"):
             with ac():
                 outputs["depth_pred"] = self.depth_head(feats, train=True).to(torch.float32)
+        if self._refines():
+            outputs["refine"] = self._refine_cascade(images, feats, roi_feats, roi_boxes,
+                                                     rois.is_sampled, outputs)
         return outputs, rois
+
+    def _refine_cascade(self, images, feats, roi_feats, roi_boxes, is_sampled,
+                        outputs) -> Dict[str, torch.Tensor]:
+        """The reference's training with REFINE_ON: the detection cascade
+        without gradient on the sampled proposals (fast R-CNN inference,
+        then the mask and plane pools, through K1 alone, and heads), then
+        the refine head, which takes gradients, as does the depth head
+        through the plane-offset recompute when it trains (JAX
+        planercnn.py:412-451)."""
+        mcfg = self.config.model
+        h, w = self.config.input.height, self.config.input.width
+        b = roi_boxes.shape[0]
+        with torch.no_grad():
+            dd = fast_rcnn_inference(
+                outputs["box_scores"].detach(), outputs["box_deltas"].detach(), roi_boxes,
+                is_sampled, image_height=h, image_width=w, cfg=mcfg.roi_heads,
+                bbox_reg_weights=mcfg.box_head.bbox_reg_weights)
+            nd = dd["boxes"].shape[1]
+            pool = lambda hcfg: self._pool(
+                roi_feats, dd["boxes"], resolution=hcfg.pooler_resolution,
+                sampling_ratio=hcfg.pooler_sampling_ratio, aligned=False,
+                valid=dd["valid"], training=True)
+            mp = pool(mcfg.mask_head)
+            pp = pool(mcfg.plane_head)
+            with self._autocast(images.device):
+                mlog = self.roi_heads.mask_head(mp.reshape(b * nd, *mp.shape[2:]))
+                planes = self.roi_heads.plane_head(pp.reshape(b * nd, *pp.shape[2:]))
+            mprob = torch.sigmoid(mlog.to(torch.float32))[:, 0].reshape(b, nd, *mlog.shape[2:])
+            depth = outputs.get("depth_pred")
+            if depth is None:      # the depth head is frozen: predict without it training
+                with self._autocast(images.device):
+                    depth = self.depth_head(feats).to(torch.float32)
+        dets = Detections(boxes=dd["boxes"], scores=dd["scores"], classes=dd["classes"],
+                          valid=dd["valid"], masks=mprob,
+                          planes=planes.to(torch.float32).reshape(b, nd, -1))
+        return self._refine(images, dets, depth)
 
 
 def build_model(config: Config, device=None,

@@ -47,11 +47,17 @@ def anchors_for_level(feat_h: int, feat_w: int, stride: int, size: float,
 
 
 class RPNHead(nn.Module):
-    """StandardRPNHead: 3x3 conv + relu -> 1x1 objectness and 1x1 deltas."""
+    """StandardRPNHead: 3x3 conv + relu -> 1x1 objectness and 1x1 deltas.
 
-    def __init__(self, in_channels: int, num_anchors: int):
+    `num_conv` > 1 is the DRPN head (reference `drpn.py:13-28`, JAX
+    rpn.py:59-96): `conv` is a Sequential of `num_conv` plain 3x3 convs with
+    no activation between them, and the one ReLU follows the stack."""
+
+    def __init__(self, in_channels: int, num_anchors: int, num_conv: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
+        conv = lambda: nn.Conv2d(in_channels, in_channels, 3, padding=1)
+        self.conv = conv() if num_conv == 1 else nn.Sequential(
+            *[conv() for _ in range(num_conv)])
         self.objectness_logits = nn.Conv2d(in_channels, num_anchors, 1)
         self.anchor_deltas = nn.Conv2d(in_channels, num_anchors * 4, 1)
 
@@ -101,11 +107,9 @@ class RPN(nn.Module):
     def __init__(self, cfg: RPNConfig = RPNConfig(),
                  anchor_cfg: AnchorConfig = AnchorConfig(), in_channels: int = 256):
         super().__init__()
-        if cfg.head_convs != 1:
-            raise NotImplementedError("the DRPN head (head_convs > 1) is not ported")
         self.cfg = cfg
         self.anchor_cfg = anchor_cfg
-        self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios))
+        self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios), cfg.head_convs)
 
     def anchors(self, shapes: Sequence[Tuple[int, int]], device) -> List[torch.Tensor]:
         return [torch.from_numpy(anchors_for_level(

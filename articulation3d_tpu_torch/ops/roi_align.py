@@ -6,14 +6,19 @@ Counterpart of `articulation3d_tpu/ops/roi_align.py`, with torchvision
   * V1 ("ROIAlign") vs V2 ("ROIAlignV2", aligned=True): V2 shifts sample
     coordinates by -0.5 and does not force malformed ROIs to 1x1;
   * `sampling_ratio` S samples per bin and axis; 0 means the adaptive
-    ceil(bin size), sampled on a fixed grid of `ADAPTIVE_CAP` = 4 whose
-    samples beyond the per-ROI count are masked out;
+    ceil(bin size), with no cap as in torchvision (`adaptive_cap=None`),
+    or at most `adaptive_cap` as in the JAX package (which passes 4).  The
+    samples sit on a grid of the largest count of the ROIs at hand, and
+    those beyond an ROI's own count are masked out;
   * detectron2's FPN level assignment floor(4 + log2(sqrt(area) / 224)).
 
 Each level map is flattened to (H*W, C) rows and the levels are
 concatenated, with one zero row at the end for out-of-range corners, so
 every ROI samples once at its level through flat indices.  ROIs are
-processed in chunks: the corner buffer is (chunk, P*S, P*S, C).
+grouped by sample count and processed in chunks whose corner buffer
+(k, P*S, P*S, C) holds no more samples than `chunk` ROIs at S = 4: an
+uncapped sliver at p2 takes up to 23 samples per bin, and a chunk of
+those has fewer ROIs, not a buffer sized for the largest count.
 
 This is the plain reference both poolers are tested against, and the
 model's "torch" ROI pooler.  Features are channels-last (H, W, C).
@@ -21,25 +26,18 @@ model's "torch" ROI pooler.  Features are channels-last (H, W, C).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-ADAPTIVE_CAP = 4  # samples per bin and axis at most when sampling_ratio is 0
+# S for `chunk` in the gather pooler's buffer budget (the JAX package's cap)
+_BUDGET_SAMPLES = 4
 
 
-def _sample_coords(boxes: torch.Tensor, spatial_scale, output_size: int,
-                   sampling_ratio: int, aligned: bool
-                   ) -> Tuple[torch.Tensor, ...]:
-    """Per-ROI sample coordinates and masks.
-
-    spatial_scale: a float or a per-ROI (N,) tensor (multilevel).
-    Returns ys, xs (N, P, S) float coordinates and y_mask, x_mask (N, P, S).
-    """
-    p = output_size
+def _bins(boxes: torch.Tensor, spatial_scale, output_size: int, aligned: bool):
+    """Per-ROI (x1, y1, bin_w, bin_h) on the pooled level, as float32."""
     n = boxes.shape[0]
-    dev = boxes.device
-    scale = torch.as_tensor(spatial_scale, dtype=torch.float32, device=dev)
+    scale = torch.as_tensor(spatial_scale, dtype=torch.float32, device=boxes.device)
     if scale.dim() == 0:
         scale = scale.expand(n)
     offset = 0.5 if aligned else 0.0
@@ -53,17 +51,52 @@ def _sample_coords(boxes: torch.Tensor, spatial_scale, output_size: int,
     if not aligned:  # legacy: force malformed ROIs to be 1x1
         roi_w = roi_w.clamp(min=1.0)
         roi_h = roi_h.clamp(min=1.0)
-    bin_w = roi_w / p
-    bin_h = roi_h / p
+    return x1, y1, roi_w / output_size, roi_h / output_size
 
+
+def _counts(bin_sz: torch.Tensor, sampling_ratio: int,
+            adaptive_cap: Optional[int]) -> torch.Tensor:
+    """Samples per bin along one axis, (N,) int32: the ratio, or ceil(bin)
+    at least 1 and at most `adaptive_cap` (no cap when it is None)."""
+    if sampling_ratio > 0:
+        return torch.full(bin_sz.shape, sampling_ratio, dtype=torch.int32,
+                          device=bin_sz.device)
+    return torch.ceil(bin_sz).to(torch.int32).clamp(1, adaptive_cap)
+
+
+def sample_counts(boxes: torch.Tensor, spatial_scale, output_size: int,
+                  sampling_ratio: int, aligned: bool,
+                  adaptive_cap: Optional[int] = None) -> torch.Tensor:
+    """(N,) int32: each ROI's larger per-axis sample count."""
+    _, _, bin_w, bin_h = _bins(boxes, spatial_scale, output_size, aligned)
+    return torch.maximum(_counts(bin_w, sampling_ratio, adaptive_cap),
+                         _counts(bin_h, sampling_ratio, adaptive_cap))
+
+
+def _sample_coords(boxes: torch.Tensor, spatial_scale, output_size: int,
+                   sampling_ratio: int, aligned: bool,
+                   adaptive_cap: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Per-ROI sample coordinates and masks.
+
+    spatial_scale: a float or a per-ROI (N,) tensor (multilevel).
+    adaptive_cap: with sampling ratio 0, the most samples per bin and axis
+    (None: ceil(bin), uncapped).  The grid S is the ratio, the cap, or,
+    uncapped, the largest count of these ROIs (one host read).
+    Returns ys, xs (N, P, S) float coordinates and y_mask, x_mask (N, P, S).
+    """
+    p = output_size
+    n = boxes.shape[0]
+    dev = boxes.device
+    x1, y1, bin_w, bin_h = _bins(boxes, spatial_scale, p, aligned)
+    n_sw = _counts(bin_w, sampling_ratio, adaptive_cap)
+    n_sh = _counts(bin_h, sampling_ratio, adaptive_cap)
     if sampling_ratio > 0:
         s = sampling_ratio
-        n_sw = torch.full((n,), s, dtype=torch.int32, device=dev)
-        n_sh = n_sw
+    elif adaptive_cap is not None:
+        s = adaptive_cap
     else:
-        s = ADAPTIVE_CAP
-        n_sw = torch.ceil(bin_w).to(torch.int32).clamp(1, s)
-        n_sh = torch.ceil(bin_h).to(torch.int32).clamp(1, s)
+        s = int(torch.maximum(n_sw, n_sh).max()) if n else 1
 
     ph = torch.arange(p, dtype=torch.float32, device=dev)
     iy = torch.arange(s, dtype=torch.float32, device=dev)
@@ -129,29 +162,35 @@ def _corner_indices_weights(ys, xs, heights, widths, row_offsets, row_stride):
 
 
 def _gather_pool(flat_rows: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-                 y_mask: torch.Tensor, x_mask: torch.Tensor,
-                 chunk: int = 128) -> torch.Tensor:
-    """Gather corner rows, combine bilinearly, average the bins, in ROI
-    chunks.  flat_rows (R+1, C) with a zero row last; idx/w
-    (N, P, S, P, S, 4); masks (N, P, S).  Returns (N, P, P, C) float32."""
-    n, p, s = idx.shape[:3]
+                 y_mask: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    """Gather corner rows, combine bilinearly, average the bins, for one
+    chunk of ROIs.  flat_rows (R+1, C) with a zero row last; idx/w
+    (K, P, S, P, S, 4); masks (K, P, S).  Returns (K, P, P, C) float32."""
+    k, p, s = idx.shape[:3]
     c = flat_rows.shape[1]
-    out = torch.zeros((n, p, p, c), dtype=torch.float32, device=flat_rows.device)
-    for lo in range(0, n, max(1, chunk)):
-        hi_ = min(n, lo + chunk)
-        k = hi_ - lo
-        ym, xm = y_mask[lo:hi_], x_mask[lo:hi_]
-        sw = ym[:, :, :, None, None] * xm[:, None, None, :, :]
-        pooled = torch.zeros((k, p, p, c), dtype=torch.float32,
-                             device=flat_rows.device)
-        for corner in range(4):
-            rows = flat_rows[idx[lo:hi_, ..., corner].reshape(-1)]
-            rows = rows.reshape(k, p, s, p, s, c).to(torch.float32)
-            wgt = (w[lo:hi_, ..., corner] * sw)[..., None]
-            pooled = pooled + (rows * wgt).sum(dim=(2, 4))
-        cnt = ym[:, 0, :].sum(dim=1) * xm[:, 0, :].sum(dim=1)
-        out[lo:hi_] = pooled / cnt.clamp(min=1.0)[:, None, None, None]
-    return out
+    sw = y_mask[:, :, :, None, None] * x_mask[:, None, None, :, :]
+    pooled = torch.zeros((k, p, p, c), dtype=torch.float32, device=flat_rows.device)
+    for corner in range(4):
+        rows = flat_rows[idx[..., corner].reshape(-1)]
+        rows = rows.reshape(k, p, s, p, s, c).to(torch.float32)
+        wgt = (w[..., corner] * sw)[..., None]
+        pooled = pooled + (rows * wgt).sum(dim=(2, 4))
+    cnt = y_mask[:, 0, :].sum(dim=1) * x_mask[:, 0, :].sum(dim=1)
+    return pooled / cnt.clamp(min=1.0)[:, None, None, None]
+
+
+def _chunks(counts: Sequence[int], chunk: int) -> Sequence[Tuple[int, int]]:
+    """[lo, hi) runs over ascending per-ROI sample counts, each run holding
+    at most chunk * 4^2 sampled points per bin (at least one ROI)."""
+    budget = max(1, chunk) * _BUDGET_SAMPLES ** 2
+    runs, lo, n = [], 0, len(counts)
+    while lo < n:
+        k = max(1, budget // max(1, counts[lo]) ** 2)
+        while k > 1 and k * counts[min(n, lo + k) - 1] ** 2 > budget:
+            k = max(1, budget // counts[min(n, lo + k) - 1] ** 2)
+        runs.append((lo, min(n, lo + k)))
+        lo += k
+    return runs
 
 
 def assign_boxes_to_levels(boxes: torch.Tensor, min_level: int = 2,
@@ -168,11 +207,13 @@ def assign_boxes_to_levels(boxes: torch.Tensor, min_level: int = 2,
 def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor, *,
                          strides: Sequence[int], output_size: int,
                          sampling_ratio: int, aligned: bool,
-                         min_level: int = 2, chunk: int = 128) -> torch.Tensor:
+                         min_level: int = 2, chunk: int = 128,
+                         adaptive_cap: Optional[int] = None) -> torch.Tensor:
     """FPN ROIAlign over levels p2..p5 for ONE image, each ROI at
     detectron2's sqrt-area level.
 
-    features: (H_l, W_l, C) maps, fine -> coarse; boxes (N, 4).
+    features: (H_l, W_l, C) maps, fine -> coarse; boxes (N, 4).  `chunk`
+    ROIs at 4 samples per bin set the gather buffer's size.
     Returns (N, P, P, C) in the features' dtype.
     """
     c = features[0].shape[-1]
@@ -189,10 +230,17 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor, 
 
     scales = torch.tensor([1.0 / s for s in strides], dtype=torch.float32,
                           device=dev)[lvl]
-    ys, xs, y_mask, x_mask = _sample_coords(boxes, scales, output_size,
-                                            sampling_ratio, aligned)
-    idx, wgt = _corner_indices_weights(ys, xs, hs[lvl], ws[lvl], offs[lvl],
-                                       ws[lvl])
-    idx = torch.where(wgt > 0, idx, torch.full_like(idx, total)).clamp(0, total)
-    return _gather_pool(flat, idx, wgt, y_mask, x_mask,
-                        chunk=chunk).to(features[0].dtype)
+    counts = sample_counts(boxes, scales, output_size, sampling_ratio, aligned,
+                           adaptive_cap)
+    order = torch.argsort(counts, stable=True)
+    out = torch.empty((boxes.shape[0], output_size, output_size, c),
+                      dtype=torch.float32, device=dev)
+    for lo, hi in _chunks(counts[order].tolist(), chunk):
+        r = order[lo:hi]
+        ys, xs, y_mask, x_mask = _sample_coords(boxes[r], scales[r], output_size,
+                                                sampling_ratio, aligned, adaptive_cap)
+        idx, wgt = _corner_indices_weights(ys, xs, hs[lvl[r]], ws[lvl[r]],
+                                           offs[lvl[r]], ws[lvl[r]])
+        idx = torch.where(wgt > 0, idx, torch.full_like(idx, total)).clamp(0, total)
+        out[r] = _gather_pool(flat, idx, wgt, y_mask, x_mask)
+    return out.to(features[0].dtype)

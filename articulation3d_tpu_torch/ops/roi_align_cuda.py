@@ -9,9 +9,9 @@ Counterpart of `articulation3d_tpu/ops/roi_align_pallas.py`.  It holds:
     origin (y0, x0) with x floored to a multiple of 8 and both capped
     against the padded level extents, the tile counts nty/ntx, and the
     per-ROI separable weights Ry (P, 64) and Rx (P, 80) that fold in V1/V2
-    offsets, the adaptive sample count capped at 4, bilinear corners, zeros
-    outside the map, the defensive edge clamp and 1/n averaging.  It feeds
-    the plain versions;
+    offsets, the adaptive sample count, bilinear corners, zeros outside the
+    map, the defensive edge clamp and 1/n averaging.  It feeds the plain
+    versions;
   * `_roi_record`, the same per-ROI integers as the kernels' own prologue
     (`csrc/roi_align_prologue.cuh`) computes them, for the tests;
   * K1, the forward: the wrapper `multilevel_roi_align_cuda`, which
@@ -28,6 +28,13 @@ Counterpart of `articulation3d_tpu/ops/roi_align_pallas.py`.  It holds:
 
 Each wrapper takes its plain version for CPU tensors only; the tests and
 `chip_smoke.py` hold the kernels against the plain versions.
+
+Every function takes `adaptive_cap`: with sampling ratio 0 an ROI takes
+ceil(bin) samples per bin and axis, uncapped as torchvision does (None,
+the default), or at most `adaptive_cap` (the JAX package's Pallas prologue
+caps at 4, so its parity tests pass 4).  More samples move an ROI's first
+and last sample, hence possibly its window origin and level bump; the
+kernels take the cap as a run-time option (0: uncapped).
 
 The 64x80 window and the 8-aligned x origin are kept in the prologue though
 the CUDA kernels do no DMA: they decide which level and which weights an
@@ -54,8 +61,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .roi_align import (ADAPTIVE_CAP, _sample_coords, assign_boxes_to_levels,
-                        multilevel_roi_align)
+from .roi_align import _sample_coords, assign_boxes_to_levels, multilevel_roi_align
 
 TILE_Y = 32   # window rows per tile
 TILE_X = 40   # window cols per tile
@@ -108,7 +114,8 @@ def _separable_weights(coord, mask, n_s, size, origin, win_n):
 def pallas_level_idx(flat_boxes: torch.Tensor, *, n_levels: int,
                      strides: Sequence[int], output_size: int,
                      sampling_ratio: int, aligned: bool,
-                     min_level: int = 2) -> torch.Tensor:
+                     min_level: int = 2,
+                     adaptive_cap: Optional[int] = None) -> torch.Tensor:
     """The 0-based level each ROI is pooled from: detectron2's sqrt-area
     level, moved to a coarser level when the sampled extent overflows the
     64x80-cell window (roi_align_pallas.py:120-171)."""
@@ -118,7 +125,8 @@ def pallas_level_idx(flat_boxes: torch.Tensor, *, n_levels: int,
     scale_table = torch.tensor([1.0 / s for s in strides], dtype=torch.float32,
                                device=dev)
     ys0, xs0, ym0, xm0 = _sample_coords(flat_boxes, scale_table[levels],
-                                        output_size, sampling_ratio, aligned)
+                                        output_size, sampling_ratio, aligned,
+                                        adaptive_cap)
     big = torch.tensor(1e9, dtype=torch.float32, device=dev)
     y_min0 = torch.where(ym0 > 0, ys0, big).amin(dim=(1, 2))
     y_max0 = torch.where(ym0 > 0, ys0, -big).amax(dim=(1, 2))
@@ -138,7 +146,8 @@ def pallas_level_idx(flat_boxes: torch.Tensor, *, n_levels: int,
 def _prepare(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
              strides: Sequence[int], output_size: int, sampling_ratio: int,
              aligned: bool, min_level: int = 2,
-             valid: Optional[torch.Tensor] = None) -> dict:
+             valid: Optional[torch.Tensor] = None,
+             adaptive_cap: Optional[int] = None) -> dict:
     """Per-ROI prologue shared by the kernel and its plain version
     (roi_align_pallas.py:273-375).
 
@@ -155,7 +164,7 @@ def _prepare(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
     levels = pallas_level_idx(flat_boxes, n_levels=len(level_shapes),
                               strides=strides, output_size=p,
                               sampling_ratio=sampling_ratio, aligned=aligned,
-                              min_level=min_level)
+                              min_level=min_level, adaptive_cap=adaptive_cap)
     hs = [int(s[1]) for s in level_shapes]
     ws = [int(s[2]) for s in level_shapes]
     hp = [max(h, SPAN_Y) for h in hs]
@@ -171,7 +180,7 @@ def _prepare(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
     x0_cap = as_t([w - SPAN_X for w in wp])[levels]
 
     ys, xs, y_mask, x_mask = _sample_coords(flat_boxes, scales, p,
-                                            sampling_ratio, aligned)
+                                            sampling_ratio, aligned, adaptive_cap)
     if sampling_ratio > 0:
         n_sh = torch.full((total,), sampling_ratio, dtype=torch.int64, device=dev)
         n_sw = n_sh
@@ -213,7 +222,8 @@ def multilevel_roi_align_separable(features: Sequence[torch.Tensor],
                                    sampling_ratio: int, aligned: bool,
                                    min_level: int = 2,
                                    valid: Optional[torch.Tensor] = None,
-                                   chunk: int = 256) -> torch.Tensor:
+                                   chunk: int = 256,
+                                   adaptive_cap: Optional[int] = None) -> torch.Tensor:
     """The plain torch version of the kernel (port of the CPU emulation in
     `tests/test_pallas_roi.py`), chunked over ROIs.
 
@@ -225,7 +235,8 @@ def multilevel_roi_align_separable(features: Sequence[torch.Tensor],
     bsz, n = boxes.shape[:2]
     pr = _prepare([f.shape for f in features], boxes, strides=strides,
                   output_size=output_size, sampling_ratio=sampling_ratio,
-                  aligned=aligned, min_level=min_level, valid=valid)
+                  aligned=aligned, min_level=min_level, valid=valid,
+                  adaptive_cap=adaptive_cap)
     out = _separable_forward(features, pr, output_size, chunk)
     return out.reshape(bsz, n, output_size, output_size, -1)
 
@@ -319,7 +330,8 @@ def _record_of(pr: dict) -> torch.Tensor:
 def _roi_record(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
                 strides: Sequence[int], output_size: int, sampling_ratio: int,
                 aligned: bool, min_level: int = 2,
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                valid: Optional[torch.Tensor] = None,
+                adaptive_cap: Optional[int] = None) -> torch.Tensor:
     """The per-ROI record (level, y0, x0, nty, ntx) as K1's fused prologue
     (`csrc/roi_align_prologue.cuh`) computes it: (T, 5) int32.
 
@@ -362,7 +374,7 @@ def _roi_record(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
         if sampling_ratio > 0:
             n = torch.full_like(start, float(sampling_ratio))
         else:
-            n = torch.ceil(bin_sz).to(torch.int32).clamp(1, ADAPTIVE_CAP).to(torch.float32)
+            n = torch.ceil(bin_sz).to(torch.int32).clamp(1, adaptive_cap).to(torch.float32)
         first = start + (f32(0.0) + f32(0.5) / n) * bin_sz
         last = start + (f32(float(p - 1)) + ((n - 1.0) + f32(0.5)) / n) * bin_sz
         pos = bin_sz >= 0
@@ -478,7 +490,8 @@ def build_kernels(names: Sequence[str] = tuple(_SOURCES),
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _OPTS = [_F, _F, _F, _F,                                  # 1/stride per level
-         _I, _I, _I, _I, _I]                              # C, P, ratio, aligned, min_level
+         _I, _I, _I, _I, _I, _I]                          # C, P, ratio, aligned,
+                                                          # min_level, cap (0: none)
 _ARGTYPES = {
     "roi_align_fwd": [_VP, _VP, _VP, _VP, _I,             # f2..f5, dtype
                       _I, _I, _I, _I, _I, _I, _I, _I,     # h2, w2 .. h5, w5
@@ -516,11 +529,14 @@ def _hw(shapes: Sequence[Sequence[int]]) -> List[int]:
 
 def _opt_args(opts: dict, c: int) -> list:
     """The kernels' option arguments: 1/stride per level as float32 (the
-    values of the prologue's scale table), C, P, the ratio, aligned and
-    the min level."""
+    values of the prologue's scale table), C, P, the ratio, aligned, the
+    min level and the adaptive cap (0: uncapped)."""
     scales = torch.tensor([1.0 / s for s in opts["strides"]], dtype=torch.float32).tolist()
+    cap = opts.get("adaptive_cap")
+    if cap is not None and int(cap) < 1:
+        raise ValueError(f"adaptive_cap must be None or at least 1, got {cap}")
     return [*scales, int(c), int(opts["output_size"]), int(opts["sampling_ratio"]),
-            int(bool(opts["aligned"])), int(opts.get("min_level", 2))]
+            int(bool(opts["aligned"])), int(opts.get("min_level", 2)), int(cap or 0)]
 
 
 def _launch(features: Sequence[torch.Tensor], boxes: torch.Tensor,
@@ -612,7 +628,8 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
                               strides: Sequence[int], output_size: int,
                               sampling_ratio: int, aligned: bool,
                               min_level: int = 2,
-                              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              valid: Optional[torch.Tensor] = None,
+                              adaptive_cap: Optional[int] = None) -> torch.Tensor:
     """Batched FPN ROIAlign: features (B, H_l, W_l, C) x 4 (float32 or
     bfloat16, channels-last, C a multiple of 4 or 8), boxes (B, N, 4)
     float32, valid (B, N) bool -> (B, N, P, P, C) float32.  Invalid ROIs
@@ -621,8 +638,8 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
     CUDA tensors launch K1 (one launch, no torch prologue); CPU tensors
     take the plain version.
     """
-    kw = dict(strides=strides, output_size=output_size,
-              sampling_ratio=sampling_ratio, aligned=aligned, min_level=min_level)
+    kw = dict(strides=strides, output_size=output_size, sampling_ratio=sampling_ratio,
+              aligned=aligned, min_level=min_level, adaptive_cap=adaptive_cap)
     if boxes.device.type == "cpu":
         return multilevel_roi_align_separable(features, boxes, valid=valid, **kw)
     if boxes.device.type != "cuda":
@@ -640,7 +657,9 @@ def multilevel_roi_align_adjoint_cuda(g: torch.Tensor,
                                       boxes: torch.Tensor, record: torch.Tensor, *,
                                       strides: Sequence[int], output_size: int,
                                       sampling_ratio: int, aligned: bool,
-                                      min_level: int = 2) -> List[torch.Tensor]:
+                                      min_level: int = 2,
+                                      adaptive_cap: Optional[int] = None
+                                      ) -> List[torch.Tensor]:
     """K2: the gradient of K1 with respect to the features.
 
     g: (T, P, P, C) or (B, N, P, P, C) float32 pooled cotangent;
@@ -653,8 +672,8 @@ def multilevel_roi_align_adjoint_cuda(g: torch.Tensor,
     runs); CPU tensors take `multilevel_roi_align_adjoint_separable` on the
     `_prepare` of the same boxes.
     """
-    kw = dict(strides=strides, output_size=output_size,
-              sampling_ratio=sampling_ratio, aligned=aligned, min_level=min_level)
+    kw = dict(strides=strides, output_size=output_size, sampling_ratio=sampling_ratio,
+              aligned=aligned, min_level=min_level, adaptive_cap=adaptive_cap)
     if g.device.type == "cpu":
         pr = _prepare(feat_shapes, boxes, valid=record[:, 3] > 0, **kw)
         return multilevel_roi_align_adjoint_separable(g, feat_shapes, pr)
@@ -734,7 +753,8 @@ def multilevel_roi_align_train(features: Sequence[torch.Tensor],
                                strides: Sequence[int], output_size: int,
                                sampling_ratio: int, aligned: bool,
                                impl: str, valid: Optional[torch.Tensor] = None,
-                               min_level: int = 2) -> torch.Tensor:
+                               min_level: int = 2,
+                               adaptive_cap: Optional[int] = None) -> torch.Tensor:
     """Batched FPN ROIAlign for training (JAX `multilevel_roi_align_train`):
     features (B, H_l, W_l, C) x 4, boxes (B, N, 4), valid (B, N) bool ->
     (B, N, P, P, C) float32; invalid ROIs pool to zeros and send no
@@ -749,7 +769,7 @@ def multilevel_roi_align_train(features: Sequence[torch.Tensor],
     """
     kw = dict(strides=tuple(strides), output_size=int(output_size),
               sampling_ratio=int(sampling_ratio), aligned=bool(aligned),
-              min_level=int(min_level))
+              min_level=int(min_level), adaptive_cap=adaptive_cap)
     if impl == "cuda":
         return _TrainPool.apply(boxes, valid, kw, *features)
     if impl != "torch":

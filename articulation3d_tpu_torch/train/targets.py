@@ -1,7 +1,7 @@
 """Target assignment, proposal sampling and losses.
 
 Counterpart of `articulation3d_tpu/train/targets.py` (detectron2's
-two-stage training semantics), without the refine-head branch:
+two-stage training semantics):
 
   * RPN anchor matching (`Matcher([0.3, 0.7], [0, -1, 1],
     allow_low_quality_matches=True)`) and 256 anchors per image at a 0.5
@@ -13,7 +13,8 @@ two-stage training semantics), without the refine-head branch:
   * mask BCE on crops of the GT bitmasks (d2 `crop_and_resize`, as two
     separable products per ROI);
   * plane L1 over the foreground count, axis losses with per-GT valid bits
-    and the translation's double-angle space, depth L1 on valid pixels.
+    and the translation's double-angle space, depth L1 on valid pixels;
+  * the refine head's weighted cross-entropy, summed over the images.
 
 Batches are fixed-capacity: GT arrives padded per image with a valid mask,
 boxes (B, G, 4) XYXY pixels, classes (B, G), valid (B, G), masks
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..models.heads import double_angle
+from ..models.refine_head import refine_loss_single
 from ..ops.box_ops import encode_deltas, pairwise_iou, smooth_l1_loss
 from ..ops.roi_align import _sample_coords
 from ..ops.roi_align_cuda import _separable_weights
@@ -306,6 +308,14 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
                             acfg.smooth_l1_beta)
         n_t = (tvalid.sum() * 2).clamp(min=1).to(torch.float32)
         losses["loss_tran_axis"] = acfg.loss_weight * masked_sum(tl, tvalid) / n_t
+
+    if "refine" in outputs:
+        r = outputs["refine"]
+        # the reference sums the per-image losses (JAX targets.py:371-381)
+        losses["refine_loss"] = mcfg.refine_head.loss_weight * sum(
+            refine_loss_single(r["logits"][i], gt["masks"][i].to(torch.float32),
+                               gt["valid"][i], r["soft_masks"][i], r["valid"][i])
+            for i in range(b))
 
     if "depth_pred" in outputs:
         pred = outputs["depth_pred"].to(torch.float32)

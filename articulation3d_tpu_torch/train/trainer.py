@@ -30,7 +30,7 @@ from ..data.catalog import get_dataset_dicts, get_metadata
 from ..data.mapper import DetectionLoader, PlaneRCNNMapper, PrefetchLoader
 from ..models.planercnn import PlaneRCNN
 from ..structures import resolve_device
-from ..weights import load_torch_state_dict, random_state_dict, warm_start
+from ..weights import load_torch_state_dict, random_state_dict, schema_options, warm_start
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .optimizer import build_optimizer
 from .train_step import to_device, train_step
@@ -83,7 +83,7 @@ class Trainer:
         self.max_instances = max_instances
         self._batches = None
         model = PlaneRCNN(cfg)
-        warm_start(model, random_state_dict(cfg.seed))
+        warm_start(model, random_state_dict(cfg.seed, **schema_options(cfg.model)))
         self.model = model.to(self.device).train()
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)

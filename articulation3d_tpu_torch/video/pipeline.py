@@ -5,7 +5,8 @@ Counterpart of `articulation3d_tpu/video/pipeline.py`:
     uint8 BGR frames -> preprocess -> PlaneRCNN.inference ->
     paste masks at image resolution -> depth-based plane-offset override
 
-all on the device; only the detections, packed masks and u16-millimetre
+(with the refine head on, its full-image masks take the place of the
+pasted ones), all on the device; only the detections, packed masks and u16-millimetre
 depth come back to the host, where confidence trimming builds the
 `FramePrediction`s.  The depth override reproduces the reference's
 `PlaneRCNN_Branch.process`: EVAL-intrinsics rays (f = 571.623718), offset =
@@ -106,12 +107,16 @@ def make_inference_step(config: Config, model: PlaneRCNN,
             result["rot_axis"] = det.rot_axis
             result["tran_axis"] = det.tran_axis
         full = None
-        if det.masks is not None:
+        if "full_masks" in out:
+            # the refine head's masks, already at image resolution
+            full = out["full_masks"] >= 0.5
+        elif det.masks is not None:
             full = torch.stack([
                 paste_masks(det.masks[i], boxes[i], det.valid[i], out_h, out_w,
                             threshold=mcfg.mask_head.mask_threshold,
                             nms=mcfg.mask_head.nms)
                 for i in range(boxes.shape[0])])
+        if full is not None:
             result["full_masks_packed"] = pack_masks_bits(full)
         if "depth" in out:
             depth = out["depth"]

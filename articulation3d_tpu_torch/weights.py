@@ -4,7 +4,11 @@ The port's parameter names ARE the d2 state-dict keys, so a released
 `model_final.pth` loads with `load_state_dict`.  This module holds:
 
   * `d2_key_shapes`: every key and shape of the PlaneRCNN R50-FPN
-    checkpoint (mask, plane, axis and depth heads);
+    checkpoint (mask, plane, axis and depth heads), with the refine head
+    (`refine_head.refinement_block.*`, keys of the port's own: no released
+    checkpoint carries them) and the DRPN's conv stack
+    (`proposal_generator.rpn_head.conv.{i}`) where the config has them
+    (`schema_options`);
   * `random_state_dict`: seeded He-style weights in that schema (the same
     draws as the test oracle's `he_state_dict`), for runs without a
     checkpoint;
@@ -39,9 +43,48 @@ _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_var": ("batch_stats", "var")}
 
 
-def d2_key_shapes(num_classes: int = 2) -> Dict[str, tuple]:
+# the refine head's conv blocks: (d2 name, in, out, kernel, kind, flax path
+# under refine_head/refinement_block); "pred.1" and "global_pred.1" are
+# plain convs, the others hold theirs as `.conv`
+_REFINE = (
+    ("conv_0", 9, 32, 3, "conv", ("ConvBlock_0", "Conv_0")),
+    ("conv_1", 64, 64, 3, "conv", ("ConvBlock_1", "Conv_0")),
+    ("conv_1_1", 128, 64, 3, "conv", ("ConvBlock_2", "Conv_0")),
+    ("conv_2", 128, 128, 3, "conv", ("ConvBlock_3", "Conv_0")),
+    ("conv_2_1", 256, 128, 3, "conv", ("ConvBlock_4", "Conv_0")),
+    ("up_2", 128, 64, 4, "deconv", ("ConvBlock_5", "ConvTranspose_0")),
+    ("up_1", 128, 32, 4, "deconv", ("ConvBlock_6", "ConvTranspose_0")),
+    ("pred.0", 64, 16, 3, "conv", ("ConvBlock_7", "Conv_0")),
+    ("pred.1", 16, 1, 3, "conv", ("pred",)),
+    ("global_up_2", 128, 64, 4, "deconv", ("global_up_2", "ConvTranspose_0")),
+    ("global_up_1", 128, 32, 4, "deconv", ("global_up_1", "ConvTranspose_0")),
+    ("global_pred.0", 64, 16, 3, "conv", ("global_pred_conv", "Conv_0")),
+    ("global_pred.1", 16, 1, 3, "conv", ("global_pred",)),
+)
+
+
+def _refine_key(name: str) -> str:
+    leaf = "" if name.endswith(".1") else ".conv"
+    return f"refine_head.refinement_block.{name}{leaf}"
+
+
+def schema_options(model_cfg) -> Dict[str, Any]:
+    """The `d2_key_shapes` / `random_state_dict` options a model config
+    needs: {} for the shipped heads, else refine=True and/or rpn_convs."""
+    opts: Dict[str, Any] = {}
+    if model_cfg.refine_on:
+        opts["refine"] = True
+    if model_cfg.rpn.head_convs != 1:
+        opts["rpn_convs"] = int(model_cfg.rpn.head_convs)
+    return opts
+
+
+def d2_key_shapes(num_classes: int = 2, refine: bool = False,
+                  rpn_convs: int = 1) -> Dict[str, tuple]:
     """{d2 state-dict key: shape} of PlaneRCNN R50-FPN with mask, plane,
-    axis and depth heads."""
+    axis and depth heads; with `refine`, the refine head's keys at the end;
+    with `rpn_convs` > 1, the DRPN's stack `rpn_head.conv.{i}` in place of
+    `rpn_head.conv`."""
     shapes: Dict[str, tuple] = {}
 
     def conv(key, o, i, k):
@@ -116,50 +159,91 @@ def d2_key_shapes(num_classes: int = 2) -> Dict[str, tuple]:
     convb("depth_head.depth_pred", 1, 64, 3)
     for i in range(5):
         shapes[f"proposal_generator.anchor_generator.cell_anchors.{i}"] = (3, 4)
+    shapes.update(_extra_key_shapes(refine, rpn_convs))
+    if rpn_convs > 1:
+        for s in ("weight", "bias"):
+            del shapes[f"proposal_generator.rpn_head.conv.{s}"]
     return shapes
 
 
-def random_state_dict(seed: int = 0) -> Dict[str, np.ndarray]:
+def _extra_key_shapes(refine: bool, rpn_convs: int) -> Dict[str, tuple]:
+    """The DRPN's and the refine head's keys."""
+    shapes: Dict[str, tuple] = {}
+    if rpn_convs > 1:
+        for i in range(rpn_convs):
+            shapes[f"proposal_generator.rpn_head.conv.{i}.weight"] = (256, 256, 3, 3)
+            shapes[f"proposal_generator.rpn_head.conv.{i}.bias"] = (256,)
+    if refine:
+        for name, cin, cout, k, kind, _ in _REFINE:
+            key = _refine_key(name)
+            shapes[f"{key}.weight"] = (cin, cout, k, k) if kind == "deconv" else (cout, cin, k, k)
+            shapes[f"{key}.bias"] = (cout,)
+    return shapes
+
+
+def random_state_dict(seed: int = 0, refine: bool = False,
+                      rpn_convs: int = 1) -> Dict[str, np.ndarray]:
     """Seeded He-style weights in the d2 schema, activations O(1) through
     the trunk.  Box deltas and class logits are damped so boxes stay on the
     image and scores do not saturate; depth-head convs are damped so the
     decoder (running on random BN statistics) stays O(1).  The 208 M draws
-    of a seed are made once per process; each call returns fresh copies."""
-    return {k: v.copy() for k, v in _random_arrays(seed).items()}
+    of a seed are made once per process; each call returns fresh copies.
+    The DRPN's and the refine head's keys (`schema_options`) are drawn
+    from a second stream, `RandomState([seed, 1])`, so the shipped keys
+    keep their values."""
+    out = {k: v.copy() for k, v in _random_arrays(seed).items()}
+    extra = _extra_key_shapes(refine, rpn_convs)
+    if extra:
+        rs = np.random.RandomState([seed, 1])
+        out.update({k: _draw(rs, k, s) for k, s in extra.items()})
+    if rpn_convs > 1:
+        for s in ("weight", "bias"):
+            del out[f"proposal_generator.rpn_head.conv.{s}"]
+    return out
 
 
 @functools.lru_cache(maxsize=2)
 def _random_arrays(seed: int) -> Dict[str, np.ndarray]:
     rs = np.random.RandomState(seed)
-    out = {}
-    for k, s in d2_key_shapes().items():
-        if k.endswith("running_var"):
-            out[k] = rs.uniform(0.5, 1.5, s).astype(np.float32)
-        elif k.endswith("running_mean"):
-            out[k] = (rs.randn(*s) * 0.1).astype(np.float32)
-        elif ".norm.weight" in k or (k.endswith(".1.weight") and "depth_head" in k) \
-                or (k.endswith(".2.weight") and "depth_head" in k):
-            out[k] = rs.uniform(0.6, 1.1, s).astype(np.float32)
-        elif k.endswith("num_batches_tracked"):
-            out[k] = np.zeros(s, np.int64)
-        elif k.endswith(".bias") or ".norm.bias" in k:
-            out[k] = (rs.randn(*s) * 0.05).astype(np.float32)
-        elif len(s) == 4:
-            fan_in = s[1] * s[2] * s[3]
-            if "deconv" in k and "depth_head" not in k:
-                fan_in = s[0] * s[2] * s[3]     # ConvTranspose (in, out, k, k)
-            out[k] = (rs.randn(*s) * 0.8 * np.sqrt(2.0 / fan_in)).astype(np.float32)
-        elif len(s) == 2:
-            out[k] = (rs.randn(*s) * np.sqrt(2.0 / s[1])).astype(np.float32)
-        else:
-            out[k] = rs.randn(*s).astype(np.float32)
-        if "anchor_deltas" in k:
-            out[k] = (out[k] * 0.02).astype(np.float32)
-        elif "bbox_pred" in k or "cls_score" in k:
-            out[k] = (out[k] * 0.002).astype(np.float32)
-        elif "depth_head" in k and len(s) == 4:
-            out[k] = (out[k] * 0.1).astype(np.float32)
-    return out
+    return {k: _draw(rs, k, s) for k, s in d2_key_shapes().items()}
+
+
+def _is_deconv(key: str) -> bool:
+    """A ConvTranspose weight (in, out, k, k) outside the depth head."""
+    return (("deconv" in key and "depth_head" not in key)
+            or bool(re.fullmatch(r"refine_head\.refinement_block\.(global_)?up_\d\.conv\.weight",
+                                 key)))
+
+
+def _draw(rs: np.random.RandomState, k: str, s: tuple) -> np.ndarray:
+    """One key's seeded draw (the rules of `random_state_dict`)."""
+    if k.endswith("running_var"):
+        v = rs.uniform(0.5, 1.5, s).astype(np.float32)
+    elif k.endswith("running_mean"):
+        v = (rs.randn(*s) * 0.1).astype(np.float32)
+    elif ".norm.weight" in k or (k.endswith(".1.weight") and "depth_head" in k) \
+            or (k.endswith(".2.weight") and "depth_head" in k):
+        v = rs.uniform(0.6, 1.1, s).astype(np.float32)
+    elif k.endswith("num_batches_tracked"):
+        v = np.zeros(s, np.int64)
+    elif k.endswith(".bias") or ".norm.bias" in k:
+        v = (rs.randn(*s) * 0.05).astype(np.float32)
+    elif len(s) == 4:
+        fan_in = s[1] * s[2] * s[3]
+        if _is_deconv(k):
+            fan_in = s[0] * s[2] * s[3]     # ConvTranspose (in, out, k, k)
+        v = (rs.randn(*s) * 0.8 * np.sqrt(2.0 / fan_in)).astype(np.float32)
+    elif len(s) == 2:
+        v = (rs.randn(*s) * np.sqrt(2.0 / s[1])).astype(np.float32)
+    else:
+        v = rs.randn(*s).astype(np.float32)
+    if "anchor_deltas" in k:
+        v = (v * 0.02).astype(np.float32)
+    elif "bbox_pred" in k or "cls_score" in k:
+        v = (v * 0.002).astype(np.float32)
+    elif "depth_head" in k and len(s) == 4:
+        v = (v * 0.1).astype(np.float32)
+    return v
 
 
 def _ignorable(key: str) -> bool:
@@ -243,6 +327,16 @@ def _jax_path(key: str) -> Optional[Tuple[Tuple[str, ...], str]]:
         name = f"lateral_res{m.group(2)}" if m.group(1) == "lateral" else f"output_p{m.group(2)}"
         leaf, kind = wb("conv")
         return ("fpn", name, leaf), kind
+    m = re.fullmatch(r"proposal_generator\.rpn_head\.conv\.(\d+)\.(weight|bias)", key)
+    if m:   # the DRPN's stack (JAX train/checkpoint.py:215-221)
+        leaf, kind = wb("conv")
+        return ("rpn", "head", f"conv_{m.group(1)}", leaf), kind
+    m = re.fullmatch(r"refine_head\.refinement_block\.([\w.]+?)(?:\.conv)?\.(weight|bias)", key)
+    if m:
+        name = m.group(1)
+        blk = next(b for b in _REFINE if b[0] == name)
+        leaf, kind = wb(blk[4])
+        return ("refine_head", "refinement_block") + blk[5] + (leaf,), kind
     m = re.fullmatch(r"proposal_generator\.rpn_head\.(conv|objectness_logits|anchor_deltas)\.(weight|bias)", key)
     if m:
         leaf, kind = wb("conv")
@@ -294,7 +388,8 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     """The JAX package's (params, batch_stats) -> d2-schema state dict.
 
     Inverts `train/checkpoint.py::_convert`: conv HWIO -> OIHW; deconv
-    flipped back, then transposed; linear transposed, with the first-FC
+    (flax ConvTranspose, HW in out) flipped in both spatial axes, then
+    transposed to torch's (in, out, H, W); linear transposed, with the first-FC
     (H*W*C, O) kernels reordered to d2's (O, C*H*W); FrozenBN as is; depth
     BN scale/bias from `params` and mean/var from `batch_stats`.  Keys whose
     module the JAX model does not have (a head switched off) are left out.
@@ -302,8 +397,11 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     batch_stats = batch_stats or {}
     if num_classes is None:
         num_classes = int(_get(params, ("box_head", "cls_score", "kernel")).shape[1]) - 1
+    head = params.get("rpn", {}).get("head", {})
+    rpn_convs = sum(1 for k in head if re.fullmatch(r"conv_\d+", k)) or 1
     out: Dict[str, np.ndarray] = {}
-    for key in d2_key_shapes(num_classes):
+    for key in d2_key_shapes(num_classes, refine="refine_head" in params,
+                             rpn_convs=rpn_convs):
         mapped = _jax_path(key)
         if mapped is None:
             continue

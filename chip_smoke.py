@@ -19,7 +19,12 @@ non-zero exit):
      nty, ntx) its fused prologue writes held integer-exactly against
      torch `_prepare` and `_roi_record` on the card; K2 in float32 from
      that record, with the transpose identity <K1(F), G> = <F, K2(G)>
-     summed in float64;
+     summed in float64; then "[f1]": both kernels, uncapped (the default
+     since the repair of fault F1), on ROIs whose bins take more than 4
+     samples (p2 slivers up to 23, the 120x360 door at p3 with 7, ROIs
+     whose extra samples move their window origin, tile count or level
+     bump), the record exact; and both kernels at JAX's cap of 4 (their
+     runtime cap) against the capped plain versions and record;
   3. the main path: `VideoPipeline` at full width (R50-FPN, 1000
      proposals, 100 detections, mask/plane/axis/depth heads, the shipped
      configs/config.yaml with seeded random weights and score threshold 0)
@@ -77,11 +82,34 @@ non-zero exit):
      1.0, axes turned by 90 degrees bbox+axis AP 0, GT planes plane AP 1.0;
      (f) `opt_arti` with conf 0 in two SLURM shards over the val clips, then
      `--load-results`;
- 10. a JSON line of kernel measurements, then the device JSON as the last
+ 10. "[refine-serve]": `VideoPipeline` on configs/config.yaml with
+     `model.refine_on true` (480x640, batch 8, score threshold 0, 16
+     frames, 100 instances per image through the refine U-Net at 192x256):
+     frames/s, the refine pass's share of a warm step, peak memory, the
+     same with cuDNN TF32 on, and the kernel route against the plain route
+     (the refined masks' foreground IoU, planes' max error);
+ 11. "[refine-train]": `Trainer` on configs/step3_plane.yaml with
+     `model.refine_on true` at ims 4 (cut from 8), 2 + 10 steps on one
+     synthetic batch: steps/s, peak memory, K1/K2 per step, a falling
+     `refine_loss`, and K1 against its plain version on the first step's
+     five pools, the cascade's two no-grad pools among them
+     ("[refine-train-pools]");
+ 12. "[drpn]": configs/config.yaml with `model.rpn.head_convs 5`: one
+     serving batch, K1 against its plain version on its three pools
+     ("[drpn-pools]"), then proposals and detections of the kernel route
+     against the plain route;
+ 13. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
+`python3 chip_smoke.py --only f1,refine-serve,refine-train,drpn` builds the
+kernels and runs just the named phases of 2 and 10-12 (any subset); it is
+for iterating on those phases, makes no kernel line, and its last line,
+`{"partial": true, "phases": [...], ...}`, has no "ok" key: it is never
+the result of a whole run.
+
 Exits non-zero without a result when there is no CUDA device or the
-package is not beside this script.  TF32 is off for every phase.
+package is not beside this script.  TF32 is off for every phase but one
+timing of phase 10, which states it.
 """
 
 from __future__ import annotations
@@ -321,12 +349,10 @@ def main() -> int:
               "not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from articulation3d_tpu_torch.config import load_config
     from articulation3d_tpu_torch.models.planercnn import build_model
     from articulation3d_tpu_torch.ops import roi_align_cuda as rac
     from articulation3d_tpu_torch.ops.preprocess import preprocess_images
     from articulation3d_tpu_torch.video.pipeline import VideoPipeline
-    from articulation3d_tpu_torch.weights import random_state_dict
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -342,22 +368,22 @@ def main() -> int:
     _log(f"[build] {[os.path.relpath(v, ROOT) for v in libs.values()]} in "
          f"{time.perf_counter() - t0:.1f}s")
 
+    only = _only_phases()
+    if only:
+        for name in only:
+            PHASES[name](rac, card)
+        print(json.dumps({"partial": True, "phases": only, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     # 2. kernels vs plain versions ---------------------------------------
     phase_kernel_parity(rac)
     phase_adjoint_parity(rac)
+    f1 = phase_f1(rac)
 
     # 3. main path -------------------------------------------------------
-    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
-    cfg = cfg.replace(weights="", model=dataclasses.replace(
-        cfg.model, roi_heads=dataclasses.replace(cfg.model.roi_heads,
-                                                 score_thresh_test=0.0)))
-    sd = random_state_dict(0)
-    # a trained RPN proposes boxes near its anchors; at the random weights'
-    # scale the deltas hit the log(1000/16) clamp and most proposals become
-    # full-height slivers beyond the kernel's window contract, which it
-    # pools from a coarser level by design (roi_align_pallas.py docstring)
-    for k in ("weight", "bias"):
-        sd[f"proposal_generator.rpn_head.anchor_deltas.{k}"] *= 0.01
+    cfg = _serving_config()
+    sd = _serving_weights(cfg)
     model = build_model(cfg, state_dict=sd)
     pipe = VideoPipeline(cfg, model, batch_size=8, conf_threshold=0.0)
     rs = np.random.RandomState(0)
@@ -433,6 +459,8 @@ def main() -> int:
         kern = _time_kernel(rac, roi_feats, boxes, valid, p, sr, al)
         plain = _time_ms(lambda: rac.multilevel_roi_align_separable(roi_feats, boxes, **args),
                          iters=3, warmup=1)
+        kern4 = _time_kernel(rac, roi_feats, boxes, valid, p, sr, al, adaptive_cap=4)
+        over4 = _over_four(rac, boxes, valid, p, sr, al)
         bound, by = _bound(rac, roi_feats, boxes, valid, p, sr, al)
         bound_by.add(by)
         _log(f"[timing] {stage:5s} pool P={p:2d} rois={boxes.shape[0] * boxes.shape[1]} "
@@ -440,8 +468,10 @@ def main() -> int:
              f"(kernel alone {kern:.4f} ms, wrapper's own {ms - kern:.4f} ms), plain "
              f"{plain:.4f} ms, bound {bound:.4f} ms by {by}; wrapper/bound "
              f"{ms / bound:.2f}x, kernel/bound {kern / bound:.2f}x; record == _prepare on "
-             f"{n_rec} ROIs ({bumped} bumped) ({card})")
-        per_pool[stage] = dict(ms=ms, kernel_ms=kern, plain_ms=plain, bound_ms=bound)
+             f"{n_rec} ROIs ({bumped} bumped); {over4}; kernel alone with JAX's cap of 4 "
+             f"{kern4:.4f} ms ({card})")
+        per_pool[stage] = dict(ms=ms, kernel_ms=kern, plain_ms=plain, bound_ms=bound,
+                               kernel_ms_cap4=kern4)
         for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("kernel_ms", kern)):
             tot[k] += v
 
@@ -512,16 +542,23 @@ def main() -> int:
     # 9. the recipe from a dataset on disk -----------------------------------
     recipe = phase_recipe(rac, card, train)
 
-    # 10. results --------------------------------------------------------
-    max_err = max(_main_path_err(rac, captured), recipe["err"])
+    # 10-12. the refine head (serving, training) and the DRPN head ----------
+    rserve = phase_refine_serve(rac, card)
+    rtrain = phase_refine_train(rac, card)
+    drpn = phase_drpn(rac, card)
+
+    # 13. results --------------------------------------------------------
+    max_err = max(_main_path_err(rac, captured), recipe["err"], f1["k1"], rtrain["err"],
+                  drpn["err"])
+    k1_new = {"refine_serve": rserve["k1"], "refine_train": rtrain["k1"], "drpn": drpn["k1"]}
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_fwd.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:184",
-        "launches": k1_inference + train["k1"] + k1_cli + recipe["k1"],
+        "launches": k1_inference + train["k1"] + k1_cli + recipe["k1"] + sum(k1_new.values()),
         "launches_by_path": {"inference": k1_inference, "training": train["k1"],
-                             "cli": k1_cli, "recipe": recipe["k1"]},
+                             "cli": k1_cli, "recipe": recipe["k1"], **k1_new},
         "max_abs_err": max_err,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
@@ -539,10 +576,11 @@ def main() -> int:
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_adj.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:519",
-        "launches": train["k2"] + recipe["k2"],
+        "launches": train["k2"] + recipe["k2"] + rtrain["k2"],
         "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0,
-                             "recipe": recipe["k2"]},
-        "max_abs_err": train["adj_err"],
+                             "recipe": recipe["k2"], "refine_serve": 0,
+                             "refine_train": rtrain["k2"], "drpn": 0},
+        "max_abs_err": max(train["adj_err"], f1["k2"]),
         "ms": train["adj_ms"],
         "plain_ms": train["adj_plain_ms"],
         "bound_ms": train["adj_bound_ms"],
@@ -981,6 +1019,7 @@ def phase_training(rac, card) -> dict:
     fwd_kernel_ms = _time_kernel(rac, feats, boxes, valid, p, sr, al)
     fwd_plain_ms = _time_ms(lambda: rac.multilevel_roi_align_separable(feats, boxes, **args),
                             iters=3, warmup=1)
+    fwd_kernel4 = _time_kernel(rac, feats, boxes, valid, p, sr, al, adaptive_cap=4)
     fwd_bound, fwd_by = _bound(rac, feats, boxes, valid, p, sr, al)
     bound, by = _adjoint_bound(rac, shapes, pr, g)
     atomics = _adjoint_atomics(rac, pr, g.shape[-1])
@@ -995,15 +1034,17 @@ def phase_training(rac, card) -> dict:
          f"the bound); max_abs_err {err:.3e} (max|plain| {scale:.3e}); "
          f"K1 wrapper {fwd_ms:.4f} ms (kernel alone {fwd_kernel_ms:.4f} ms), plain "
          f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms by {fwd_by}, wrapper/bound "
-         f"{fwd_ms / fwd_bound:.2f}x; record == _prepare on {n_rec} ROIs ({bumped} bumped) "
-         f"({card})")
+         f"{fwd_ms / fwd_bound:.2f}x; record == _prepare on {n_rec} ROIs ({bumped} bumped); "
+         f"{_over_four(rac, boxes, valid, p, sr, al)}; K1 alone with JAX's cap of 4 "
+         f"{fwd_kernel4:.4f} ms ({card})")
     return dict(k1=k1, k2=k2, rois=rois, adj_err=err, adj_ms=adj_ms, busy=busy,
                 steps_per_s=len(timed) / t_timed,
                 images_per_s=sc.ims_per_batch * len(timed) / t_timed,
                 adj_kernel_ms=adj_kernel_ms, adj_plain_ms=adj_plain_ms,
                 adj_bound_ms=bound, adj_bound_by=by, adj_atomics=atomics, batch=batch,
                 k1_train=dict(ms=fwd_ms, kernel_ms=fwd_kernel_ms, plain_ms=fwd_plain_ms,
-                              bound_ms=fwd_bound, bound_by=fwd_by))
+                              bound_ms=fwd_bound, bound_by=fwd_by,
+                              kernel_ms_cap4=fwd_kernel4))
 
 
 def _adjoint_bound(rac, shapes, pr, g):
@@ -1220,16 +1261,34 @@ class _count_calls:
         setattr(self.module, self.name, self.orig)
 
 
-def _time_kernel(rac, feats, boxes, valid, p, sr, aligned) -> float:
-    """K1 alone (`_launch` into preallocated outputs), CUDA events, ms."""
+def _time_kernel(rac, feats, boxes, valid, p, sr, aligned, adaptive_cap=None) -> float:
+    """K1 alone (`_launch` into preallocated outputs), CUDA events, ms;
+    uncapped, or with `adaptive_cap` (4: the JAX package's count)."""
     import torch
     opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned,
-                min_level=2)
+                min_level=2, adaptive_cap=adaptive_cap)
     boxes, valid = rac._kernel_boxes(boxes, valid, p)
     total = boxes.shape[0] * boxes.shape[1]
     out = torch.empty((total, p, p, feats[0].shape[-1]), dtype=torch.float32, device="cuda")
     record = torch.empty((total, 5), dtype=torch.int32, device="cuda")
     return _time_ms(lambda: rac._launch(feats, boxes, valid, opts, record, out))
+
+
+def _over_four(rac, boxes, valid, p, sr, aligned) -> str:
+    """How many valid ROIs of a pool take more than 4 samples per bin at
+    their pooled level (the count JAX caps), and the largest count."""
+    import torch
+
+    from articulation3d_tpu_torch.ops.roi_align import sample_counts
+    flat = boxes.reshape(-1, 4).float()
+    lvl = rac.pallas_level_idx(flat, n_levels=4, strides=STRIDES, output_size=p,
+                               sampling_ratio=sr, aligned=aligned)
+    scale = torch.tensor([1.0 / s for s in STRIDES], device=flat.device)[lvl]
+    n = sample_counts(flat, scale, p, sr, aligned)
+    if valid is not None:
+        n = n[valid.reshape(-1)]
+    return (f"{int((n > 4).sum())}/{n.numel()} valid ROIs take more than 4 samples per bin "
+            f"(up to {int(n.max()) if n.numel() else 0})")
 
 
 class _record_pools:
@@ -1727,6 +1786,507 @@ def phase_recipe(rac, card, phase5) -> dict:
     assert n_pred == 2 * RECIPE_SPLITS["val"][1] and k1f >= 2 * 4 * 3, (n_pred, k1f)
     assert {"bbox - arti_rot", "auroc"} <= set(merged)
     return dict(k1=launches["k1"], k2=launches["k2"], busy=busy, err=err)
+
+# --------------------------------------------------------------------------- #
+# F1: uncapped adaptive sampling in both kernels
+# --------------------------------------------------------------------------- #
+
+# ROIs whose uncapped samples move their record away from the capped one
+# (found on the CPU with `_roi_record`, adaptive_cap None vs 4): the box
+# pool's window origin y0 and tile count ntx, the 14x14 pools' level bump
+F1_MOVED = {
+    "box": [[82.84113311767578, 7.598225116729736, 639.9981689453125, 262.3997802734375],
+            [75.51812744140625, 27.29754066467285, 131.4962158203125, 246.4310760498047],
+            [264.30316162109375, 183.0899658203125, 300.2140197753906, 418.6983947753906],
+            [441.3808898925781, 7.159747123718262, 495.7129821777344, 232.71519470214844]],
+    "plane": [[31.255233764648438, 85.14908599853516, 636.3790283203125, 130.50636291503906],
+              [7.546128749847412, 255.8233184814453, 636.2803344726562, 312.2767639160156],
+              [64.69647216796875, 187.70018005371094, 622.1502685546875, 208.90760803222656]],
+}
+
+
+def _f1_boxes(pool: str) -> np.ndarray:
+    """(1, N, 4): p2 slivers up to the full 640-px width (23 samples per bin
+    at 7x7), the 120x360 door (7 samples per bin at p3), the record-moving
+    ROIs above and 2000 random boxes of 20-640 px."""
+    rs = np.random.RandomState(0)
+    slivers = [[0.0, 100.0, 640.0, 112.0], [5.0, 30.0, 637.0, 40.0],
+               [300.0, 0.0, 310.0, 480.0], [20.0, 200.0, 500.0, 215.0]]
+    door = [[100.0, 50.0, 220.0, 410.0]]
+    n = 2000
+    w, h = rs.uniform(20, 640, n), rs.uniform(20, 480, n)
+    x1, y1 = rs.uniform(0, 640 - w), rs.uniform(0, 480 - h)
+    rand = np.stack([x1, y1, x1 + w, y1 + h], 1)
+    return np.concatenate([slivers, door, F1_MOVED[pool], rand]).astype(np.float32)[None]
+
+
+def phase_f1(rac) -> dict:
+    """K1 (float32 and bfloat16) and K2 against their plain versions on ROIs
+    whose bins take more than 4 samples, uncapped (the default): the phase-2
+    tolerances, K1's record exact against `_prepare` and `_roi_record` on
+    the card, and the ROIs whose record the extra samples move (against
+    the capped record) counted; then both kernels with the cap at 4 against
+    the capped plain versions and `_roi_record`.  Returns the largest
+    errors."""
+    import torch
+
+    from articulation3d_tpu_torch.ops.roi_align import sample_counts
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    feats32 = _pyramid(gen, 1, torch.float32)
+    errs = {"k1": 0.0, "k2": 0.0}
+    for pool in ("box", "plane"):
+        p, sr, aligned = POOLS[pool]
+        boxes = torch.from_numpy(_f1_boxes(pool)).cuda()
+        opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
+        flat = boxes.reshape(-1, 4)
+        level = rac.assign_boxes_to_levels(flat) - 2
+        scale = torch.tensor([1.0 / s for s in STRIDES], device="cuda")[level]
+        counts = sample_counts(flat, scale, p, sr, aligned)
+        capped = rac._roi_record([f.shape for f in feats32], boxes, adaptive_cap=4, **opts)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            feats = feats32 if dtype == torch.float32 else [f.to(dtype) for f in feats32]
+            got = rac.multilevel_roi_align_cuda(feats, boxes, **opts)
+            want = rac.multilevel_roi_align_separable(feats, boxes, **opts)
+            bumped, n_rec = _check_record(rac, feats, boxes, None, p, sr, aligned)
+            _, record = rac._forward_kernel(feats, boxes, None, dict(opts, min_level=2))
+            torch.cuda.synchronize()
+            err, ref = float((got - want).abs().max()), float(want.abs().max())
+            moved = (record != capped).any(1)
+            _log(f"[f1] K1 {pool:5s} P={p:2d} {str(dtype)[6:]:8s} rois={n_rec}: samples per bin "
+                 f"up to {int(counts.max())}, {int((counts > 4).sum())} ROIs above 4; "
+                 f"max_abs_err {err:.3e} (tol {tol * ref:.3e}); record == _prepare == "
+                 f"_roi_record ({bumped} bumped); records the cap would change: "
+                 f"{int(moved.sum())} (level {int((record[:, 0] != capped[:, 0]).sum())}, "
+                 f"y0 {int((record[:, 1] != capped[:, 1]).sum())}, x0 "
+                 f"{int((record[:, 2] != capped[:, 2]).sum())}, tiles "
+                 f"{int(((record[:, 3:] != capped[:, 3:]).any(1)).sum())})")
+            assert np.isfinite(err) and err <= tol * ref, (pool, dtype, err)
+            assert int(counts.max()) >= (23 if p == 7 else 12) and bool(moved.any())
+            if dtype == torch.float32:
+                errs["k1"] = max(errs["k1"], err)
+        shapes = [f.shape for f in feats32]
+        g = torch.randn((boxes.shape[1], p, p, 256), generator=gen, device="cuda")
+        fwd, record = rac._forward_kernel(feats32, boxes, None, dict(opts, min_level=2))
+        got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **opts)
+        want = rac.multilevel_roi_align_adjoint_separable(g, shapes,
+                                                          rac._prepare(shapes, boxes, **opts))
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ref = max(float(b.abs().max()) for b in want)
+        lhs = float((fwd.double() * g.double()).sum())
+        rhs = float(sum((f.double() * d.double()).sum() for f, d in zip(feats32, got)))
+        rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
+        _log(f"[f1] K2 {pool:5s} P={p:2d} float32 rois={boxes.shape[1]}: max_abs_err {err:.3e} "
+             f"(tol {1e-4 * ref:.3e}); transpose identity rel_err {rel:.3e} (tol 1e-5)")
+        assert err <= 1e-4 * ref and rel <= 1e-5, (pool, err, rel)
+        errs["k2"] = max(errs["k2"], err)
+        # the kernels' runtime cap (the option block's last int) at JAX's 4
+        cap4 = dict(opts, adaptive_cap=4)
+        fwd4, record4 = rac._forward_kernel(feats32, boxes, None, dict(cap4, min_level=2))
+        want4 = rac.multilevel_roi_align_separable(feats32, boxes, **cap4).reshape(fwd4.shape)
+        got4 = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record4, **cap4)
+        plain4 = rac.multilevel_roi_align_adjoint_separable(g, shapes,
+                                                            rac._prepare(shapes, boxes, **cap4))
+        torch.cuda.synchronize()
+        e1 = float((fwd4 - want4).abs().max())
+        e2 = max(float((a - b).abs().max()) for a, b in zip(got4, plain4))
+        ref2 = max(float(b.abs().max()) for b in plain4)
+        _log(f"[f1] capped at 4 (JAX's count) {pool:5s}: K1 max_abs_err {e1:.3e}, K2 "
+             f"max_abs_err {e2:.3e}, record == _roi_record(adaptive_cap=4) "
+             f"{bool((record4 == capped).all())}, {int((fwd4 != fwd).any(-1).any(-1).any(-1).sum())} "
+             f"ROIs pooled differently from uncapped")
+        assert bool((record4 == capped).all()) and e1 <= 1e-5 * float(want4.abs().max())
+        assert e2 <= 1e-4 * ref2, (pool, e1, e2)
+        errs["k1"], errs["k2"] = max(errs["k1"], e1), max(errs["k2"], e2)
+    return errs
+
+
+# --------------------------------------------------------------------------- #
+# the refine head and the DRPN head at full width
+# --------------------------------------------------------------------------- #
+
+def _serving_config(**model_kw):
+    """configs/config.yaml at score threshold 0, with `model_kw`."""
+    from articulation3d_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    heads = dataclasses.replace(cfg.model.roi_heads, score_thresh_test=0.0)
+    return cfg.replace(weights="", model=dataclasses.replace(cfg.model, roi_heads=heads,
+                                                             **model_kw))
+
+
+def _serving_weights(cfg):
+    """`random_state_dict(0)` with the config's refine / DRPN keys, the RPN
+    deltas damped and, with the refine head, its instance logits lifted by
+    2.  A trained RPN proposes boxes near its anchors; at the random
+    weights' scale the deltas hit the log(1000/16) clamp and most proposals
+    become full-height slivers beyond the kernel's window contract, which
+    it pools from a coarser level by design (roi_align_pallas.py
+    docstring)."""
+    from articulation3d_tpu_torch.weights import random_state_dict, schema_options
+    sd = random_state_dict(0, **schema_options(cfg.model))
+    for k in ("weight", "bias"):
+        sd[f"proposal_generator.rpn_head.anchor_deltas.{k}"] *= 0.01
+    if cfg.model.refine_on:
+        # at random weights the global background logit wins every pixel;
+        # lift the instance logits so the refined masks are not all empty
+        sd["refine_head.refinement_block.pred.1.bias"] += np.float32(2.0)
+    return sd
+
+
+def _calibrate_depth_bn(model, frames) -> None:
+    """Set the depth head's BatchNorm statistics to those of `frames` (one
+    train-mode pass at momentum 1).  The random statistics of
+    `random_state_dict` leave the eval-mode decoder's output near 4e8 m;
+    the refine head reads the depth (its plane offsets and an input
+    channel), so the refine phases give it metres, as a trained model
+    would."""
+    import torch
+
+    from articulation3d_tpu_torch.models.depth_head import BatchNorm2d
+    from articulation3d_tpu_torch.ops.preprocess import preprocess_images
+    bns = [m for m in model.depth_head.modules() if isinstance(m, BatchNorm2d)]
+    momenta = [m.momentum for m in bns]
+    with torch.no_grad():
+        feats = model.features(preprocess_images(torch.from_numpy(np.stack(frames)).cuda()))
+        for m in bns:
+            m.momentum = 1.0
+        try:
+            with model._autocast(feats["p2"].device):
+                model.depth_head(feats, train=True)
+        finally:
+            for m, v in zip(bns, momenta):
+                m.momentum = v
+
+
+def _route_agreement(a, b, masks_a=None, masks_b=None):
+    """Kernel route `a` against plain route `b` (Detections of one batch):
+    matched share, box and plane max errors, and with full masks the IoU of
+    the two routes' foreground over the matched detections (pixels both
+    routes mark over pixels either marks, summed over the pairs) and the
+    share of equal pixels (near 1 whatever the masks: each pixel is in at
+    most one of an image's masks)."""
+    n_ref = n_match = 0
+    box_err = plane_err = 0.0
+    inter = union = eq = tot = 0
+    for i in range(a.boxes.shape[0]):
+        va, vb = a.valid[i].cpu().numpy(), b.valid[i].cpu().numpy()
+        ra, rb = a.boxes[i].cpu().numpy()[va], b.boxes[i].cpu().numpy()[vb]
+        ri, oi = _match(rb, ra)
+        n_ref, n_match = n_ref + len(rb), n_match + len(ri)
+        if not len(ri):
+            continue
+        box_err = max(box_err, float(np.abs(rb[ri] - ra[oi]).max()))
+        pa, pb = a.planes[i].cpu().numpy()[va][oi], b.planes[i].cpu().numpy()[vb][ri]
+        plane_err = max(plane_err, float(np.abs(pa - pb).max()))
+        if masks_a is not None:
+            ma = masks_a[i][np.nonzero(va)[0][oi]]
+            mb = masks_b[i][np.nonzero(vb)[0][ri]]
+            inter += int((ma & mb).sum())
+            union += int((ma | mb).sum())
+            eq += int((ma == mb).sum())
+            tot += ma.size
+    return dict(matched=n_match / max(n_ref, 1), n_ref=n_ref, box_err=box_err,
+                plane_err=plane_err, fg_iou=inter / max(union, 1), fg_union=union,
+                equal_pixels=eq / max(tot, 1))
+
+
+def phase_refine_serve(rac, card) -> dict:
+    """`VideoPipeline` on configs/config.yaml with `model.refine_on true`
+    (480x640, batch 8, score threshold 0, 16 noise frames): frames/s, the
+    refine pass's share of a warm step (CUDA events around it, and the
+    profiler's busy share), peak memory, K1's launches; then the kernel
+    route against the plain route (`roi_pooler_impl: torch`) on 8 of the
+    frames in float32: refined masks by the IoU of their foreground over
+    the matched detections (at least 0.95; 0.9824 on an H100), planes by
+    max error (at most 1e-4 m; 1.47e-6 on an H100)."""
+    import torch
+
+    from articulation3d_tpu_torch.models.planercnn import build_model
+    from articulation3d_tpu_torch.video.pipeline import VideoPipeline
+
+    cfg = _serving_config(refine_on=True)
+    sd = _serving_weights(cfg)
+    model = build_model(cfg, state_dict=sd)
+    rs = np.random.RandomState(0)
+    frames = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(16)]
+    _calibrate_depth_bn(model, frames[:8])
+    sd.update({f"depth_head.{k}": v.cpu().numpy()
+               for k, v in model.depth_head.state_dict().items()})
+    pipe = VideoPipeline(cfg, model, batch_size=8, conf_threshold=0.0)
+    rc = cfg.model.refine_head
+    _log(f"[refine-serve] configs/config.yaml with model.refine_on true (R50-FPN, dtype "
+         f"{cfg.model.dtype}, pooler {cfg.model.roi_pooler_impl}, "
+         f"{cfg.model.roi_heads.detections_per_image} detections per image, the refine "
+         f"U-Net at {rc.height}x{rc.width} in float32), score threshold 0, batch 8, 16 "
+         f"frames 480x640, weights random_state_dict(0) with the refine keys, RPN deltas x0.01, "
+         f"instance logits +2, the depth head's BatchNorm statistics from the first 8 frames")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rac.multilevel_roi_align_cuda.launches = 0
+    preds = pipe.run(frames, verbose=True)
+    k1 = rac.multilevel_roi_align_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    assert len(preds) == 16 and k1 == 3 * 2, (len(preds), k1)
+    for pr in preds:
+        assert pr.masks.shape == (len(pr), 480, 640) and np.isfinite(pr.planes).all()
+    fg = float(np.mean([pr.masks.mean() for pr in preds]))
+    assert fg > 0, "the refined masks are all background"
+    pipe.run(frames)
+    walls = list(pipe.chunk_walls)
+    fps = 8 / float(np.mean(walls))
+
+    # the refine pass's share of one warm step
+    batch = torch.from_numpy(np.stack(frames[:8])).cuda()
+    spans = []
+    orig = model._refine
+
+    def timed_refine(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig(*a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    model._refine = timed_refine
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.step(batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del model._refine
+    refine_ms = spans[0][0].elapsed_time(spans[0][1])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name, n_k = _device_time(prof)
+    total = sum(by_name.values())
+    conv = sum(v for k, v in by_name.items() if "conv" in k.lower() or "gemm" in k.lower()
+               or "sm90" in k or "cudnn" in k.lower())
+    _log(f"[refine-serve] steady chunk walls {['%.4f' % w for w in walls]} s = {fps:.2f} "
+         f"frames/s; max_memory_allocated {peak / 2**30:.3f} GiB; K1 launches {k1} (3 per "
+         f"batch); mean refined foreground share per mask {fg:.5f} ({card})")
+    _log(f"[refine-serve] one warm step of 8 frames: {step_ms:.3f} ms, of which the refine "
+         f"pass (paste at threshold -1 + the U-Net over 8 x "
+         f"{cfg.model.roi_heads.detections_per_image} instances) {refine_ms:.3f} ms "
+         f"({100 * refine_ms / step_ms:.1f}%); under the profiler: wall {wall_us / 1e3:.3f} ms, "
+         f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), {n_k} kernels, "
+         f"kernel time {total / 1e3:.3f} ms, conv/GEMM kernels {conv / 1e3:.3f} ms ({card})")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        _log(f"[refine-serve]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  "
+             f"{name[:110]}")
+    # torch's default for float32 convolutions: cuDNN may use TF32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pipe.run(frames)
+        tf32_walls = list(pipe.chunk_walls)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    _log(f"[refine-serve] with cuDNN TF32 on (torch's default; every other line here runs "
+         f"it off): chunk walls {['%.4f' % w for w in tf32_walls]} s = "
+         f"{8 / float(np.mean(tf32_walls)):.2f} frames/s ({card})")
+    del pipe, model
+    torch.cuda.empty_cache()
+
+    # kernel route vs plain route, float32, 8 frames
+    from articulation3d_tpu_torch.ops.preprocess import preprocess_images
+    from articulation3d_tpu_torch.video.pipeline import make_inference_step
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
+    model32 = build_model(cfg32, state_dict=sd)
+    outs = {}
+    for impl in ("cuda", "torch"):
+        model32.config = cfg32.replace(model=dataclasses.replace(cfg32.model,
+                                                                 roi_pooler_impl=impl))
+        step = make_inference_step(model32.config, model32)
+        with torch.no_grad():
+            res = model32.inference(preprocess_images(batch))
+            wire = step(batch)
+        masks = np.unpackbits(wire["full_masks_packed"].cpu().numpy(), axis=-1,
+                              count=640).astype(bool)
+        outs[impl] = (res["detections"], masks, wire["planes"])
+    agree = _route_agreement(outs["cuda"][0], outs["torch"][0], outs["cuda"][1],
+                             outs["torch"][1])
+    _log(f"[refine-serve] kernel route vs plain route, float32, 8 frames: detections matched "
+         f"{agree['matched']:.4f} of {agree['n_ref']}, box max err {agree['box_err']:.4f} px, "
+         f"refined planes max err {agree['plane_err']:.4e} (limit 1e-4), refined masks' "
+         f"foreground IoU {agree['fg_iou']:.6f} over {agree['fg_union']} pixels either route "
+         f"marks in the matched detections (gate 0.95), pixels equal "
+         f"{agree['equal_pixels']:.6f}")
+    assert agree["matched"] >= 0.9 and agree["fg_iou"] >= 0.95, agree
+    assert agree["plane_err"] <= 1e-4, agree
+    del model32
+    torch.cuda.empty_cache()
+    return dict(k1=k1, fps=fps, peak=peak, refine_ms=refine_ms, step_ms=step_ms,
+                busy=busy / wall_us, agree=agree)
+
+
+def _stage3_batch(cfg, b: int, g: int = 4):
+    """Synthetic stage-3 batch: `_train_batch`'s images and boxes, box-shaped
+    packed masks, planes (unit normal x offset), axes and u16 depth."""
+    h, w = cfg.input.height, cfg.input.width
+    batch = _train_batch(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, mask_on=False, plane_on=False, axis_on=False, depth_on=False)), b, g)
+    rs = np.random.RandomState(1)
+    masks = np.zeros((b, g, h, w), bool)
+    for i in range(b):
+        for j in range(g):
+            x1, y1, x2, y2 = batch["gt_boxes"][i, j].astype(int)
+            masks[i, j, y1 + 2:y2 - 2, x1 + 2:x2 - 2] = True
+    normals = rs.randn(b, g, 3)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    axis = lambda: np.concatenate([rs.randn(b, g, 3), np.ones((b, g, 1))], -1)
+    batch.update(gt_masks_packed=np.packbits(masks, axis=-1),
+                 gt_planes=(normals * rs.uniform(1, 4, (b, g, 1))).astype(np.float32),
+                 gt_rot_axis=axis().astype(np.float32), gt_tran_axis=axis().astype(np.float32),
+                 gt_depth_mm=rs.randint(500, 5000, (b, h, w)).astype(np.uint16))
+    return batch
+
+
+def phase_refine_train(rac, card) -> dict:
+    """configs/step3_plane.yaml with `model.refine_on true` through `Trainer`
+    at ims 4 (cut from the stage's 8), 2 warm + 10 timed steps on one
+    synthetic batch: steps/s, peak memory, K1/K2 per step, a finite,
+    falling `refine_loss`, and K1 against its plain version on the first
+    step's pool inputs (the sampled ROIs' box, mask and plane pools and the
+    cascade's no-grad mask and plane pools over its detections)."""
+    import torch
+
+    from articulation3d_tpu_torch.config import load_config
+    from articulation3d_tpu_torch.train.trainer import Trainer
+    from articulation3d_tpu_torch.weights import warm_start
+
+    cfg = load_config(os.path.join(ROOT, "configs", "step3_plane.yaml"))
+    # score threshold 0 as in serving: at random weights the 3-way softmax
+    # gives every class about 1/3, below the shipped 0.7, and the cascade
+    # would hand the refine head no detection
+    heads = dataclasses.replace(cfg.model.roi_heads, score_thresh_test=0.0)
+    cfg = cfg.replace(weights="", output_dir=os.path.join(ROOT, ".chip_smoke", "refine"),
+                      model=dataclasses.replace(cfg.model, refine_on=True, roi_heads=heads),
+                      solver=dataclasses.replace(cfg.solver, ims_per_batch=4,
+                                                 warmup_iters=0, base_lr=0.002))
+    batch = _stage3_batch(cfg, 4)
+    trainer = Trainer(cfg, [batch])
+    warm_start(trainer.model, _train_weights())
+    _log(f"[refine-train] configs/step3_plane.yaml with model.refine_on true (frozen trunk, "
+         f"box head and axis head; mask, plane, depth and refine heads training; dtype "
+         f"{cfg.model.dtype}, {cfg.model.roi_heads.batch_size_per_image} ROIs and "
+         f"{cfg.model.roi_heads.detections_per_image} cascade detections per image at score "
+         f"threshold 0), ims 4 (cut from 8), warmup_iters 0, base_lr 0.002; phase 5's weights plus "
+         f"random_state_dict(0)'s refine keys; one synthetic batch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rac.multilevel_roi_align_cuda.launches = 0
+    rac.multilevel_roi_align_adjoint_cuda.launches = 0
+    pools = _record_pools(5)          # the first step's three sampled and two cascade pools
+    try:
+        recs = trainer.train(2)
+    finally:
+        pools.restore()
+    recs += trainer.train(12)
+    k1 = rac.multilevel_roi_align_cuda.launches
+    k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    cascade = [kw for _, _, kw in pools.calls[3:]]
+    assert len(pools.calls) == 5 and all(kw["training"] and kw["resolution"] == 14
+                                         for kw in cascade), [kw for _, _, kw in pools.calls]
+    err = _main_path_err(rac, pools.calls, tag="refine-train-pools")
+    n = len(recs)
+    timed = recs[2:]
+    t_timed = sum(r["wall_s"] for r in timed)
+    refine = [r["refine_loss"] for r in recs]
+    _log(f"[refine-train] {n} steps: first {recs[0]['wall_s']:.4f} s, 10 timed steps "
+         f"{t_timed:.4f} s = {len(timed) / t_timed:.4f} steps/s, "
+         f"{4 * len(timed) / t_timed:.3f} images/s; max_memory_allocated {peak / 2**30:.3f} "
+         f"GiB; launches per step K1 {k1 / n:.2f} K2 {k2 / n:.2f} ({k1}, {k2} over {n} "
+         f"steps) ({card})")
+    _log(f"[refine-train] refine_loss {['%.4f' % v for v in refine]}; last step losses "
+         f"{dict((k, round(v, 6)) for k, v in recs[-1].items())}")
+    assert all(np.isfinite(v) for r in recs for v in r.values()), recs
+    assert k1 == 5 * n and k2 == 0, (k1, k2, n)
+    assert np.mean(refine[-3:]) < np.mean(refine[:3]), refine
+    busy = _profile_train_step(trainer, card, tag="refine-train-profile")
+    del trainer, pools
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k2=k2, steps_per_s=len(timed) / t_timed, peak=peak, busy=busy, err=err)
+
+
+def phase_drpn(rac, card) -> dict:
+    """configs/config.yaml with `model.rpn.head_convs 5`: one serving batch
+    of 8 frames through `VideoPipeline` (K1's launches, and K1 against its
+    plain version on that batch's three pools over the DRPN's proposals
+    and detections), then the kernel route against the plain route in
+    float32: proposals, and detections at phase 4's gates."""
+    import torch
+
+    from articulation3d_tpu_torch.models.planercnn import build_model
+    from articulation3d_tpu_torch.ops.preprocess import preprocess_images
+    from articulation3d_tpu_torch.video.pipeline import VideoPipeline
+
+    cfg = _serving_config()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, rpn=dataclasses.replace(cfg.model.rpn, head_convs=5)))
+    sd = _serving_weights(cfg)
+    model = build_model(cfg, state_dict=sd)
+    pipe = VideoPipeline(cfg, model, batch_size=8, conf_threshold=0.0)
+    rs = np.random.RandomState(3)
+    frames = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(8)]
+    rac.multilevel_roi_align_cuda.launches = 0
+    pools = _record_pools(3)
+    try:
+        preds = pipe.run(frames)
+    finally:
+        pools.restore()
+    k1 = rac.multilevel_roi_align_cuda.launches
+    assert len(preds) == 8 and all(len(p) > 0 for p in preds) and k1 == 3, k1
+    err = _main_path_err(rac, pools.calls, tag="drpn-pools")
+    del pipe, model, pools
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
+    model32 = build_model(cfg32, state_dict=sd)
+    images = preprocess_images(torch.from_numpy(np.stack(frames)).cuda())
+    outs = {}
+    for impl in ("cuda", "torch"):
+        model32.config = cfg32.replace(model=dataclasses.replace(cfg32.model,
+                                                                 roi_pooler_impl=impl))
+        outs[impl] = model32.inference(images)
+    pa, pb = outs["cuda"]["proposals"], outs["torch"]["proposals"]
+    same_valid = bool((pa["valid"] == pb["valid"]).all())
+    prop_err = float((pa["boxes"] - pb["boxes"]).abs()[pa["valid"]].max())
+    agree = _route_agreement(outs["cuda"]["detections"], outs["torch"]["detections"])
+    _log(f"[drpn] configs/config.yaml with model.rpn.head_convs 5 (5 plain 3x3 convs, one "
+         f"ReLU), batch 8, 480x640: K1 launches {k1}, detections per frame "
+         f"{[len(p) for p in preds]}; kernel route vs plain route, float32: proposals "
+         f"{int(pa['valid'].sum())} valid, valid masks equal {same_valid}, box max err "
+         f"{prop_err:.3e} px; detections matched {agree['matched']:.4f} of {agree['n_ref']}, "
+         f"box max err {agree['box_err']:.4f} px, planes max err {agree['plane_err']:.4e} "
+         f"({card})")
+    assert same_valid and prop_err <= 1e-3, prop_err
+    assert agree["matched"] >= 0.9 and agree["box_err"] < 2.0, agree
+    del model32
+    torch.cuda.empty_cache()
+    return dict(k1=k1, err=err)
+
+
+PHASES = {"f1": lambda rac, card: phase_f1(rac), "refine-serve": phase_refine_serve,
+          "refine-train": phase_refine_train, "drpn": phase_drpn}
+
+
+def _only_phases() -> list:
+    """The phases named by `--only a,b,...` (none: the whole script)."""
+    args = sys.argv[1:]
+    if not args:
+        return []
+    if len(args) != 2 or args[0] != "--only":
+        raise SystemExit("usage: chip_smoke.py [--only f1,refine-serve,refine-train,drpn]")
+    names = args[1].split(",")
+    bad = [n for n in names if n not in PHASES]
+    if bad:
+        raise SystemExit(f"chip_smoke.py: unknown phases {bad}; known {sorted(PHASES)}")
+    return names
 
 
 if __name__ == "__main__":

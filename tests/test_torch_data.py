@@ -125,6 +125,22 @@ def test_mapper_matches_jax(tmp_path, stage, is_train):
         assert "gt_masks_packed" not in out and "gt_planes" not in out
 
 
+def test_mapper_with_refine_on_matches_jax(tmp_path):
+    """`model.refine_on` makes the mapper emit masks even where the mask head
+    is off (the refine loss reads them): stage 1 with the switch on, both
+    packages alike."""
+    path = f"{ROOT}/configs/step1_bbox.yaml"
+    over = {"input": {"height": H, "width": W}, "model": {"refine_on": True}}
+    jc, pc = jcfg.load_config(path, over), pcfg.load_config(path, over)
+    assert not pc.model.mask_on and pc.model.refine_on
+    jm = j_mapper.PlaneRCNNMapper(jc, is_train=True, max_instances=4)
+    pm = p_mapper.PlaneRCNNMapper(pc, is_train=True, max_instances=4)
+    records = _records(tmp_path)
+    for rec in records:
+        _assert_same(jm(copy.deepcopy(rec)), pm(copy.deepcopy(rec)))
+    assert "gt_masks_packed" in pm(records[6])
+
+
 def test_mapper_helpers_match_jax():
     for box, mode in (([1, 2, 30, 40], 0), ([1, 2, 30, 40], 1)):
         np.testing.assert_array_equal(p_mapper.convert_box(box, mode),

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import articulation3d_tpu.config as j_config
 import articulation3d_tpu.data.axis_codec as j_codec
 import articulation3d_tpu.data.catalog as j_catalog
 import articulation3d_tpu.evaluation as j_eval
@@ -28,6 +29,7 @@ import articulation3d_tpu.utils.rle as j_rle
 import articulation3d_tpu.utils.tables as j_tables
 import articulation3d_tpu.utils.vocap as j_vocap
 
+import articulation3d_tpu_torch.config as p_config
 import articulation3d_tpu_torch.data.axis_codec as p_codec
 import articulation3d_tpu_torch.data.catalog as p_catalog
 import articulation3d_tpu_torch.evaluation as p_eval
@@ -39,9 +41,9 @@ from articulation3d_tpu_torch import native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX = types.SimpleNamespace(codec=j_codec, catalog=j_catalog, ev=j_eval, coco=j_coco_eval,
-                            rle=j_rle)
+                            rle=j_rle, cfg=j_config)
 PORT = types.SimpleNamespace(codec=p_codec, catalog=p_catalog, ev=p_eval, coco=p_coco_eval,
-                             rle=p_rle)
+                             rle=p_rle, cfg=p_config)
 
 
 def _same(a, b):
@@ -454,6 +456,26 @@ def test_scannet_evaluator_matches_jax(tmp_path, with_depth):
         res[tag] = (ev.evaluate(), [q["pred_plane"] for q in ev._predictions])
     _same(res["jax"], res["port"])
     assert ("depth_l1_dist" in res["port"][0]) == with_depth
+
+
+def test_scannet_evaluator_with_refine_on_matches_jax(tmp_path):
+    """With `model.refine_on` the ScanNet evaluator skips the depth metrics
+    though the predictions carry depth, in both packages alike."""
+    records, preds = _random_dataset(7, n_images=3)
+    name = "teval_scannet_refine"
+    _register(tmp_path, name, records, "mp3d")
+    res = {}
+    for tag, m in (("jax", JAX), ("port", PORT)):
+        cfg = m.cfg.load_config(None, {"model": {"refine_on": True}})
+        ev = m.ev.ScannetEvaluator(name, cfg=cfg, output_dir=str(tmp_path / tag))
+        ev.reset()
+        for rec, p in zip(records, copy.deepcopy(preds)):
+            out = {k: p[k] for k in ("instances", "pred_plane", "depth")}
+            ev.process([{"image_id": rec["image_id"], "file_name": rec["file_name"],
+                         "depth": p["gt_depth"]}], [out])
+        res[tag] = ev.evaluate()
+    _same(res["jax"], res["port"])
+    assert "depth_l1_dist" not in res["port"] and res["port"]
 
 
 def test_override_depth_matches_jax(tmp_path):

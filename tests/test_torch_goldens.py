@@ -1,0 +1,195 @@
+"""The port's uncapped adaptive ROIAlign sampling (ROADMAP.md section 3,
+F1) against the reference.
+
+With sampling ratio 0 the reference (torchvision `roi_align`) samples
+ceil(bin) points per bin and axis with no cap; the JAX package caps the
+count at 4, and so did the port.  The port's default is now uncapped:
+
+1. The committed oracle fixtures `golden_oracle_biased_128x160.npz` and
+   `golden_oracle_biased_480x640.npz` (the reference model's outputs on
+   `he_state_dict(0)` + `bias_state_dict_for_detections`), run through the
+   port in float32 with the "torch" pooler, at gates far tighter than
+   `tests/test_goldens.py`'s: at least 99 % of the detections above 0.05
+   matched (IoU >= 0.5), boxes within 0.01 px, masks and planes within
+   1e-2, scores within 1e-3.  (Measured with the cap lifted: 100/100,
+   0.0031 px, 7.8e-4, 1.8e-4, 1.2e-5 at 480x640; with the cap the port
+   matched 82/100 with a box 7.92 px off.)  The kernel route's plain
+   version pools some ROIs from the bumped level, a recorded departure of
+   the reference design (ROADMAP.md section 3, PR 1), so these gates hold
+   the "torch" route.
+2. The uncapped op equals the numpy reference `roi_align_np` on ROIs that
+   need 5 to 23 samples per bin, at one level, within 1e-4 x max |ref|:
+   the port places its samples in float32, where a coordinate near 160
+   cells carries a rounding of about 1e-5 cell, against float64 in numpy
+   (measured 1.2e-5 x max).
+3. For those ROIs, `_roi_record` (the twin of the kernels' prologue)
+   equals the record of the plain weights (`_prepare`) integer for
+   integer, the extra samples move some ROIs' window origin, tile count
+   or level bump away from the capped record's, and every row of the
+   plain weights averages the ROI's own count of samples.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from articulation3d_tpu_torch import config as pcfg
+from articulation3d_tpu_torch.models.planercnn import build_model
+from articulation3d_tpu_torch.ops import roi_align_cuda as rac
+from articulation3d_tpu_torch.ops.preprocess import preprocess_images
+from articulation3d_tpu_torch.ops.roi_align import multilevel_roi_align, sample_counts
+from reference_impls import roi_align_np
+from torch_oracle import bias_state_dict_for_detections, he_state_dict
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+STRIDES = (4, 8, 16, 32)
+SHAPES = [(1, 120, 160, 8), (1, 60, 80, 8), (1, 30, 40, 8), (1, 15, 20, 8)]
+
+
+def _match(ref, got, iou_thresh=0.5):
+    """Greedy one-to-one matching by IoU (the goldens harness's rule)."""
+    def iou(a, b):
+        ix = np.maximum(0, np.minimum(a[:, None, 2], b[None, :, 2])
+                        - np.maximum(a[:, None, 0], b[None, :, 0]))
+        iy = np.maximum(0, np.minimum(a[:, None, 3], b[None, :, 3])
+                        - np.maximum(a[:, None, 1], b[None, :, 1]))
+        inter = ix * iy
+        area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])
+        return inter / np.maximum(area(a)[:, None] + area(b)[None, :] - inter, 1e-9)
+    m = iou(ref, got) if len(ref) and len(got) else np.zeros((len(ref), len(got)))
+    ri, oi, used = [], [], set()
+    for i in range(len(ref)):
+        order = np.argsort(-m[i], kind="stable") if len(got) else []
+        for j in order:
+            if m[i, j] < iou_thresh:
+                break
+            if j not in used:
+                used.add(j)
+                ri.append(i)
+                oi.append(j)
+                break
+    return np.asarray(ri, np.int64), np.asarray(oi, np.int64)
+
+
+@pytest.fixture(scope="module")
+def biased_weights():
+    return bias_state_dict_for_detections(he_state_dict(0))
+
+
+@pytest.mark.parametrize("name", ["golden_oracle_biased_128x160.npz",
+                                  "golden_oracle_biased_480x640.npz"])
+def test_fixture_at_tight_gates(name, biased_weights):
+    g = np.load(os.path.join(FIXTURES, name))
+    h, w = g["image"].shape[:2]
+    assert int(g["meta_weights_seed"]) == 0 and int(g["meta_bias"]) == 1
+    topk, dets = int(g["meta_topk"]), int(g["meta_dets"])
+    model_cfg = pcfg.ModelConfig(
+        rpn=pcfg.RPNConfig(pre_nms_topk_test=topk, post_nms_topk_test=topk),
+        roi_heads=pcfg.ROIHeadsConfig(detections_per_image=dets,
+                                      score_thresh_test=float(g["meta_score_thresh"])),
+        depth_head=pcfg.DepthHeadConfig(output_height=h, output_width=w),
+        dtype="float32", roi_pooler_impl="torch")
+    cfg = pcfg.Config(model=model_cfg, input=pcfg.InputConfig(height=h, width=w))
+    model = build_model(cfg, device="cpu", state_dict=biased_weights)
+    images = preprocess_images(torch.from_numpy(g["image"][None]), height=h, width=w)
+    out = model.inference(images)
+
+    pv = out["proposals"]["valid"][0].numpy()
+    ours = out["proposals"]["boxes"][0].numpy()[pv]
+    n = min(len(g["proposal_boxes"]), len(ours), 100)
+    ri, _ = _match(g["proposal_boxes"][:n], ours[:n], iou_thresh=0.9)
+    assert len(ri) == n
+
+    d = out["detections"]
+    keep = (d.valid[0] & (d.scores[0] > 0.05)).numpy()
+    ref_keep = g["det_scores"] > 0.05
+    assert ref_keep.sum() >= 10
+    ri, oi = _match(g["det_boxes"][ref_keep], d.boxes[0].numpy()[keep])
+    assert len(ri) >= 0.99 * ref_keep.sum(), (len(ri), int(ref_keep.sum()))
+    got = lambda t: t[0].numpy()[keep][oi]
+    ref = lambda k: g[k][ref_keep][ri]
+    assert np.abs(got(d.boxes) - ref("det_boxes")).max() < 0.01
+    assert np.abs(got(d.scores) - ref("det_scores")).max() < 1e-3
+    assert np.abs(got(d.masks) - ref("pred_masks")).max() < 1e-2
+    assert np.abs(got(d.planes) - ref("pred_planes")).max() < 1e-2
+
+
+def _many_sample_boxes():
+    """ROIs whose bins need 5 to 23 samples: p2 slivers up to the full
+    640-px width, the 120x360 door (7 samples per bin at p3), and random
+    large boxes."""
+    rs = np.random.RandomState(0)
+    slivers = [[0.0, 100.0, 640.0, 112.0], [5.0, 30.0, 637.0, 40.0],
+               [300.0, 0.0, 310.0, 480.0], [20.0, 200.0, 500.0, 215.0]]
+    door = [[100.0, 50.0, 220.0, 410.0]]
+    w = rs.uniform(150, 640, 40)
+    h = rs.uniform(150, 480, 40)
+    x1 = rs.uniform(0, 640 - w)
+    y1 = rs.uniform(0, 480 - h)
+    rand = np.stack([x1, y1, x1 + w, y1 + h], 1)
+    return np.concatenate([slivers, door, rand]).astype(np.float32)
+
+
+@pytest.mark.parametrize("p,aligned", [(7, True), (14, False)])
+def test_uncapped_op_equals_reference_numpy(p, aligned):
+    rs = np.random.RandomState(1)
+    feat = rs.randn(120, 160, 8).astype(np.float32)
+    boxes = _many_sample_boxes()
+    kw = dict(output_size=p, sampling_ratio=0, aligned=aligned)
+    counts = sample_counts(torch.from_numpy(boxes), 0.25, **kw).numpy()
+    assert counts.max() == (23 if p == 7 else 12) and (counts > 4).sum() >= 30
+    got = multilevel_roi_align([torch.from_numpy(feat)], torch.from_numpy(boxes),
+                               strides=(4,), chunk=4, **kw).numpy()
+    ref = roi_align_np(feat, boxes, 0.25, p, 0, aligned)
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    capped = multilevel_roi_align([torch.from_numpy(feat)], torch.from_numpy(boxes),
+                                  strides=(4,), adaptive_cap=4, **kw).numpy()
+    assert np.abs(capped - ref).max() > 1e-2 * np.abs(ref).max()   # the cap binds
+
+
+def test_uncapped_plain_kernel_route_equals_gather_on_the_door():
+    """The door pools from p3 inside the window: the kernel route's plain
+    version and the gather pooler agree uncapped (7 samples per bin)."""
+    rs = np.random.RandomState(2)
+    feats = [rs.randn(*s).astype(np.float32) for s in SHAPES]
+    door = np.asarray([[[100.0, 50.0, 220.0, 410.0]]], np.float32)
+    kw = dict(strides=STRIDES, output_size=7, sampling_ratio=0, aligned=True)
+    assert rac._roi_record(SHAPES, torch.from_numpy(door), **kw)[0, 0].item() == 1
+    sep = rac.multilevel_roi_align_separable([torch.from_numpy(f) for f in feats],
+                                             torch.from_numpy(door), **kw)[0].numpy()
+    gat = multilevel_roi_align([torch.from_numpy(f[0]) for f in feats],
+                               torch.from_numpy(door[0]), **kw).numpy()
+    ref = roi_align_np(feats[1][0], door[0], 1 / 8, 7, 0, True)
+    assert np.abs(gat - ref).max() <= 1e-4 * np.abs(ref).max()
+    assert np.abs(sep - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("p,sr,aligned", [(7, 0, True), (14, 0, False)])
+def test_uncapped_record_equals_plain_weights(p, sr, aligned):
+    rs = np.random.RandomState(0)
+    n = 2000
+    w = rs.uniform(20, 640, n)
+    h = rs.uniform(20, 480, n)
+    x1 = rs.uniform(0, 640 - w)
+    y1 = rs.uniform(0, 480 - h)
+    boxes = np.concatenate([np.stack([x1, y1, x1 + w, y1 + h], 1),
+                            _many_sample_boxes()]).astype(np.float32)[None]
+    kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
+    tb = torch.from_numpy(boxes)
+    record = rac._roi_record(SHAPES, tb, **kw)
+    pr = rac._prepare(SHAPES, tb, **kw)
+    np.testing.assert_array_equal(record.numpy(), rac._record_of(pr).numpy())
+    capped = rac._roi_record(SHAPES, tb, adaptive_cap=4, **kw)
+    moved = (record != capped).any(dim=1)
+    assert int(moved.sum()) >= 3
+    if p == 7:   # some window origins move, as do level bumps of the 14x14 pools
+        assert bool((record[:, 1] != capped[:, 1]).any())
+    else:
+        assert bool((record[:, 0] != capped[:, 0]).any())
+    # each output row of the plain weights averages the ROI's own (uncapped)
+    # count of in-map samples: for boxes on the image it sums to 1
+    ry, rx = rac._predicated_weights(pr)
+    for wts in (ry, rx):
+        np.testing.assert_allclose(wts.sum(dim=2).numpy(), 1.0, rtol=0, atol=1e-5)

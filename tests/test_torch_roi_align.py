@@ -14,6 +14,10 @@ version.
     boxes, and pools out-of-contract 9:1 boxes from the bumped level;
   * the wrapper takes the plain version for CPU tensors.
 
+JAX's multilevel functions cap the adaptive sample count at 4, so the port
+runs here with `adaptive_cap=4`; its default is uncapped, the reference's
+count (ROADMAP.md section 3, F1; `tests/test_torch_goldens.py`).
+
 The kernel itself is held against the plain version on the card by
 `tests/test_torch_roi_align_cuda.py`.
 """
@@ -33,6 +37,7 @@ from articulation3d_tpu_torch.ops.roi_align import multilevel_roi_align
 
 STRIDES = (4, 8, 16, 32)
 POOLS = [(7, 0, True), (14, 2, False), (14, 0, False)]   # box, mask, plane
+CAP = dict(adaptive_cap=4)   # the JAX package's sample cap (ROADMAP.md, F1)
 
 
 def _pyramid(rs, b=2, c=8, shapes=((64, 80), (32, 40), (16, 20), (8, 16))):
@@ -88,7 +93,7 @@ def test_prepare_matches_jax(p, sr, aligned):
     kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
     want = jpal._prepare([jnp.asarray(f) for f in feats], jnp.asarray(boxes),
                          valid=jnp.asarray(valid), **kw)
-    got = rac._prepare([f.shape for f in feats], _t(boxes), valid=_t(valid), **kw)
+    got = rac._prepare([f.shape for f in feats], _t(boxes), valid=_t(valid), **kw, **CAP)
     for k in ("levels", "batch_ids", "y0", "x0", "nty", "ntx"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
     t = boxes.shape[0] * boxes.shape[1]
@@ -96,7 +101,7 @@ def test_prepare_matches_jax(p, sr, aligned):
         w = np.swapaxes(np.asarray(want[k]), 1, 2).reshape(t, p, span)
         np.testing.assert_allclose(got[k].numpy(), w, atol=1e-6, err_msg=k)
     assert list(got["hp"]) == list(want["hp"]) and list(got["wp"]) == list(want["wp"])
-    lv = rac.pallas_level_idx(_t(boxes[0]), n_levels=4, **kw)
+    lv = rac.pallas_level_idx(_t(boxes[0]), n_levels=4, **kw, **CAP)
     jlv = jpal.pallas_level_idx(jnp.asarray(boxes[0]), n_levels=4, **kw)
     np.testing.assert_array_equal(lv.numpy(), np.asarray(jlv))
     n_adv = _adversarial_boxes().shape[1]
@@ -111,7 +116,8 @@ def test_separable_matches_pallas_interpret(p, sr, aligned):
     kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
     want = np.asarray(jpal.multilevel_roi_align_pallas(
         [jnp.asarray(f) for f in feats], jnp.asarray(boxes), interpret=True, **kw))
-    got = rac.multilevel_roi_align_separable([_t(f) for f in feats], _t(boxes), **kw)
+    got = rac.multilevel_roi_align_separable([_t(f) for f in feats], _t(boxes), **kw,
+                                             **CAP)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert _rel_err(got.numpy(), want) < 1e-5
 
@@ -126,7 +132,7 @@ def test_separable_valid_predication_matches_pallas():
         [jnp.asarray(f) for f in feats], jnp.asarray(boxes),
         valid=jnp.asarray(valid), interpret=True, **kw))
     got = rac.multilevel_roi_align_separable([_t(f) for f in feats], _t(boxes),
-                                             valid=_t(valid), **kw).numpy()
+                                             valid=_t(valid), **kw, **CAP).numpy()
     assert np.all(got[0, 1] == 0) and np.all(got[0, 3] == 0)
     assert np.abs(got[0, 0]).max() > 0
     assert _rel_err(got, want) < 1e-5
@@ -138,8 +144,10 @@ def test_separable_equals_gather_in_contract(p, sr, aligned):
     feats = _full_pyramid(rs)
     boxes = np.concatenate([_adversarial_boxes(), _boxes(rs, b=1, n=10) * 2], 1)
     kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
-    sep = rac.multilevel_roi_align_separable([_t(f) for f in feats], _t(boxes), **kw)
-    gat = multilevel_roi_align([_t(f[0]) for f in feats], _t(boxes[0]), chunk=8, **kw)
+    sep = rac.multilevel_roi_align_separable([_t(f) for f in feats], _t(boxes), **kw,
+                                             **CAP)
+    gat = multilevel_roi_align([_t(f[0]) for f in feats], _t(boxes[0]), chunk=8, **kw,
+                               **CAP)
     jg = np.asarray(jgather([jnp.asarray(f[0]) for f in feats], jnp.asarray(boxes[0]),
                             **kw))
     assert _rel_err(sep[0].numpy(), jg) < 1e-5
@@ -151,14 +159,15 @@ def test_bumped_level_matches_jax():
     rs = np.random.RandomState(3)
     feats = _full_pyramid(rs)
     kw = dict(strides=STRIDES, output_size=7, sampling_ratio=0, aligned=True)
-    got = rac.multilevel_roi_align_separable([_t(f) for f in feats], _t(NINE), **kw)
+    got = rac.multilevel_roi_align_separable([_t(f) for f in feats], _t(NINE), **kw,
+                                             **CAP)
     ref = np.asarray(jgather([jnp.asarray(feats[1][0])], jnp.asarray(NINE[0]),
                              strides=(8,), output_size=7, sampling_ratio=0,
                              aligned=True, min_level=3))
     assert _rel_err(got[0].numpy(), ref) < 1e-5
     port_ref = multilevel_roi_align([_t(feats[1][0])], _t(NINE[0]), strides=(8,),
                                     output_size=7, sampling_ratio=0, aligned=True,
-                                    min_level=3)
+                                    min_level=3, **CAP)
     assert _rel_err(port_ref.numpy(), ref) < 1e-5
 
 
@@ -171,7 +180,7 @@ def test_bf16_features_match_pallas_interpret():
         [jnp.asarray(f, jnp.bfloat16) for f in feats], jnp.asarray(boxes),
         interpret=True, **kw))
     got = rac.multilevel_roi_align_separable(
-        [_t(f).to(torch.bfloat16) for f in feats], _t(boxes), **kw)
+        [_t(f).to(torch.bfloat16) for f in feats], _t(boxes), **kw, **CAP)
     assert got.dtype == torch.float32
     assert _rel_err(got.numpy(), want) < 1e-2
 

@@ -13,7 +13,10 @@ plane pools on:
   * random boxes with a `valid` mask (invalid ROIs get nty = 0);
   * degenerate boxes: zero area, negative extent, outside the image.
 
-The kernel's own record is held against `_prepare` on the card by
+The JAX prologue caps the adaptive sample count at 4, so the port runs
+here with `adaptive_cap=4`; the uncapped record is pinned in
+`tests/test_torch_goldens.py`.  The kernel's own record is held against
+`_prepare` on the card by
 `tests/test_torch_roi_align_cuda.py` and `chip_smoke.py`.
 """
 
@@ -86,10 +89,10 @@ def test_roi_record_equals_jax_prepare(p, sr, aligned, set_name):
                          valid=jv, pad_features=False, **kw)
     want = np.stack([np.asarray(want[k]) for k in rac.RECORD], 1)
     tv = None if valid is None else torch.from_numpy(valid)
-    got = rac._roi_record(SHAPES, torch.from_numpy(boxes), valid=tv, **kw)
+    got = rac._roi_record(SHAPES, torch.from_numpy(boxes), valid=tv, adaptive_cap=4, **kw)
     assert got.dtype == torch.int32 and tuple(got.shape) == (boxes.shape[0] * boxes.shape[1], 5)
     np.testing.assert_array_equal(got.numpy(), want)
-    pr = rac._prepare(SHAPES, torch.from_numpy(boxes), valid=tv, **kw)
+    pr = rac._prepare(SHAPES, torch.from_numpy(boxes), valid=tv, adaptive_cap=4, **kw)
     np.testing.assert_array_equal(rac._record_of(pr).numpy(), want)
     if set_name == "aspect9_bumped" and (p, sr) == (7, 0):
         # the slivers leave their sqrt-area level for a coarser one

@@ -21,6 +21,9 @@
     nothing to the features, and the wrappers take their plain versions
     for CPU tensors without counting a launch.
 
+Where the port is held against JAX it runs with `adaptive_cap=4`, JAX's
+sample cap; its default is uncapped (ROADMAP.md section 3, F1).
+
 The compiled K2 is held against its plain version on the card by
 `tests/test_torch_roi_align_cuda.py`.
 """
@@ -39,6 +42,7 @@ from articulation3d_tpu_torch.ops import roi_align_cuda as rac
 
 STRIDES = (4, 8, 16, 32)
 KW7 = dict(strides=STRIDES, output_size=7, sampling_ratio=0, aligned=True)
+CAP = dict(adaptive_cap=4)   # the JAX package's sample cap (ROADMAP.md, F1)
 
 
 def _pyramid(rs, b=2, c=8, shapes=((64, 80), (32, 40), (16, 20), (8, 16))):
@@ -76,7 +80,7 @@ def _t(a):
 
 def _plain_adjoint(g, shapes, boxes, valid=None, **kw):
     pr = rac._prepare(shapes, _t(boxes), valid=None if valid is None else _t(valid),
-                      **kw)
+                      adaptive_cap=4, **kw)
     return [d.numpy() for d in rac.multilevel_roi_align_adjoint_separable(_t(g), shapes, pr)]
 
 
@@ -133,7 +137,7 @@ def test_plain_adjoint_valid_mask_matches_pallas_interpret(interp):
 def test_k3_matches_jax_pallas_interpret(interp):
     feats = [_t(f).requires_grad_() for f in interp["feats"]]
     out = rac.multilevel_roi_align_train(feats, _t(interp["boxes"]), impl="cuda",
-                                         valid=_t(interp["valid"]), **KW7)
+                                         valid=_t(interp["valid"]), **KW7, **CAP)
     assert out.shape == interp["k3_out"].shape and out.dtype == torch.float32
     np.testing.assert_allclose(out.detach().numpy(), interp["k3_out"], rtol=1e-5, atol=1e-5)
     (out * _t(interp["g"])).sum().backward()
@@ -256,13 +260,15 @@ def test_k3_saves_the_compact_record(interp):
     interpret-mode `_train_pool` in value and feature gradients."""
     feats = [_t(f).requires_grad_() for f in interp["feats"]]
     boxes, valid = _t(interp["boxes"]), _t(interp["valid"])
-    out = rac.multilevel_roi_align_train(feats, boxes, impl="cuda", valid=valid, **KW7)
+    out = rac.multilevel_roi_align_train(feats, boxes, impl="cuda", valid=valid, **KW7,
+                                         **CAP)
     saved = out.grad_fn.saved_tensors
     assert [tuple(s.shape) for s in saved] == [(2, 6, 4), (2, 6), (12, 5)]
     record = saved[2]
     assert record.dtype == torch.int32
     np.testing.assert_array_equal(
-        record.numpy(), rac._roi_record(interp["shapes"], boxes, valid=valid, **KW7).numpy())
+        record.numpy(),
+        rac._roi_record(interp["shapes"], boxes, valid=valid, **KW7, **CAP).numpy())
     assert ((record[:, 3] > 0).numpy() == interp["valid"].reshape(-1)).all()
     np.testing.assert_allclose(out.detach().numpy(), interp["k3_out"], rtol=1e-5, atol=1e-5)
     (out * _t(interp["g"])).sum().backward()
