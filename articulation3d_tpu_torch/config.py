@@ -254,6 +254,39 @@ def _update_dataclass(obj, overrides: Mapping[str, Any]):
     return dataclasses.replace(obj, **kw)
 
 
+def auto_scale_workers(cfg: Config, num_workers: int) -> Config:
+    """Linear-scaling-rule rewrite of the solver schedule for a new worker
+    count (detectron2 ``DefaultTrainer.auto_scale_workers``; the JAX
+    package's `config.auto_scale_workers`; the reference only ships the
+    knob, `config/config.yaml:332`).  One worker is one process.
+
+    If ``solver.reference_world_size`` is 0 or already equals
+    ``num_workers``, the config is returned unchanged.  Otherwise the total
+    batch grows with the worker count and the LR scales linearly, while
+    the iteration-denominated quantities (max_iter, warmup, decay steps,
+    eval and checkpoint periods) shrink so the same number of epochs is
+    covered.
+    """
+    old = cfg.solver.reference_world_size
+    if old == 0 or old == num_workers:
+        return cfg
+    scale = num_workers / old
+    s = cfg.solver
+    solver = dataclasses.replace(
+        s,
+        ims_per_batch=int(round(s.ims_per_batch * scale)),
+        base_lr=s.base_lr * scale,
+        max_iter=int(round(s.max_iter / scale)),
+        warmup_iters=int(round(s.warmup_iters / scale)),
+        steps=tuple(int(round(x / scale)) for x in s.steps),
+        checkpoint_period=int(round(s.checkpoint_period / scale)),
+        reference_world_size=num_workers,
+    )
+    test = dataclasses.replace(cfg.test,
+                               eval_period=int(round(cfg.test.eval_period / scale)))
+    return dataclasses.replace(cfg, solver=solver, test=test)
+
+
 def load_config(yaml_path: str | None = None,
                 overrides: Mapping[str, Any] | None = None) -> Config:
     """Build a Config, optionally merging a YAML file and a nested override
@@ -271,3 +304,17 @@ def load_config(yaml_path: str | None = None,
         raise ValueError(f"roi_pooler_impl must be one of {POOLER_IMPLS}, "
                          f"got {cfg.model.roi_pooler_impl!r}")
     return cfg
+
+
+def inference_config() -> Config:
+    """Everything on except refine (reference `config/config.yaml:55-112`)."""
+    return Config(
+        model=ModelConfig(
+            mask_on=True, plane_on=True, depth_on=True, axis_on=True, refine_on=False,
+            freeze=(
+                "backbone", "proposal_generator",
+                "roi_heads.box_head", "roi_heads.box_predictor",
+                "roi_heads.axis_head",
+            ),
+        ),
+    )

@@ -207,15 +207,25 @@ class DetectionLoader:
     Training (`shuffle`): an endless iterator, epoch e in the order of
     `np.random.RandomState(seed + e).shuffle`, the last partial batch
     dropped.  Evaluation: one ordered pass, the last batch possibly short.
+
+    `batch_size` is the global batch.  With `world_size` W > 1 (training
+    only) rank r maps and yields the r-th contiguous 1/W of every global
+    batch, in the same order on every rank.
     """
 
     def __init__(self, records: List[Dict], mapper: PlaneRCNNMapper,
-                 batch_size: int, shuffle: bool = True, seed: int = 0):
+                 batch_size: int, shuffle: bool = True, seed: int = 0,
+                 rank: int = 0, world_size: int = 1):
+        if world_size > 1 and (not shuffle or batch_size % world_size):
+            raise ValueError(f"a training batch of {batch_size} does not split over "
+                             f"{world_size} processes")
         self.records = records
         self.mapper = mapper
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
 
     def __len__(self):
         return (len(self.records) + self.batch_size - 1) // self.batch_size
@@ -228,6 +238,8 @@ class DetectionLoader:
             idx = order[start:start + self.batch_size]
             if self.shuffle and len(idx) < self.batch_size:
                 continue  # drop the last partial batch in training
+            per = len(idx) // self.world_size
+            idx = idx[self.rank * per:(self.rank + 1) * per]
             yield collate([self.mapper(self.records[i]) for i in idx])
 
     def __iter__(self):

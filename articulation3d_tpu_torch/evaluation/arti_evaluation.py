@@ -35,8 +35,9 @@ Reference quirks preserved by default (``legacy_quirks=True``), per SURVEY
 `max IoU > filter_iou` pre-filter for any G, normals by prediction index.
 
 pycocotools COCO is replaced by `CocoIndex` over the identical JSON format.
-Predictions of several processes are not gathered yet: `distributed=True`
-raises.
+With `distributed=True` every process feeds its own share of the images;
+`evaluate` gathers the predictions to every process in rank order and the
+main process computes the results, the others return an empty dict.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import numpy as np
 from ..config import Config
 from ..data.axis_codec import angle_offset_to_axis, axis_to_angle_offset
 from ..data.catalog import get_metadata
+from ..parallel.dist import gather_predictions, is_main_process
 from ..utils.metrics import EA_metric, Line
 from ..utils.vocap import compute_ap
 from .coco_index import CocoIndex
@@ -316,10 +318,8 @@ class ArtiEvaluator:
     def __init__(self, dataset_name: str, cfg: Optional[Config] = None,
                  distributed: bool = False, output_dir: Optional[str] = None,
                  legacy_quirks: bool = True):
-        if distributed:
-            raise NotImplementedError("gathering predictions across processes is not "
-                                      "ported yet; pass distributed=False")
         self.cfg = cfg
+        self._distributed = distributed
         self._output_dir = output_dir
         self._metadata = get_metadata(dataset_name)
         self._filter_iou = 0.7
@@ -342,7 +342,7 @@ class ArtiEvaluator:
             d2_data = json.load(f)
         coco_data = convert_to_coco_dict(d2_data["data"], self._metadata)
         if self._output_dir:
-            tmp = save_json + ".tmp"
+            tmp = f"{save_json}.{os.getpid()}.tmp"
             with open(tmp, "w") as f:
                 json.dump(coco_data, f)
             os.replace(tmp, save_json)  # atomic: multi-rank safe
@@ -368,6 +368,10 @@ class ArtiEvaluator:
 
     def evaluate(self) -> "OrderedDict[str, float]":
         predictions = self._predictions
+        if self._distributed:
+            predictions = gather_predictions(predictions)
+            if not is_main_process():
+                return OrderedDict()
         if len(predictions) == 0:
             logger.warning("ArtiEvaluator received no predictions")
             return OrderedDict()

@@ -8,8 +8,10 @@ statistics and a masked depth-L1 metric.  `override_depth` re-estimates each
 detection's plane offset from the predicted depth inside its mask using the
 EVAL intrinsics (f = 571.623718, principal (319.5, 239.5)), keeping the
 reference's double ScanNet<->SunCG swap sequence verbatim
-(`scannet_evaluation.py:140-163`).  Predictions of several processes are
-not gathered yet: `distributed=True` raises.
+(`scannet_evaluation.py:140-163`).  With `distributed=True` every process
+feeds its own share of the images; `evaluate` gathers the predictions in
+rank order and the main process computes the results, the others return
+an empty dict.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..config import Config
 from ..data.catalog import get_metadata
+from ..parallel.dist import gather_predictions, is_main_process
 from ..utils.camera import get_k_inv_dot_xy_1_eval
 from ..utils.metrics import compare_planes
 from ..utils.rle import mask_iou, rle_decode, rle_encode
@@ -181,10 +184,8 @@ class ScannetEvaluator:
 
     def __init__(self, dataset_name: str, cfg: Optional[Config] = None,
                  distributed: bool = False, output_dir: Optional[str] = None):
-        if distributed:
-            raise NotImplementedError("gathering predictions across processes is not "
-                                      "ported yet; pass distributed=False")
         self.cfg = cfg
+        self._distributed = distributed
         self._output_dir = output_dir
         self._metadata = get_metadata(dataset_name)
         self._filter_iou = 0.7
@@ -251,6 +252,10 @@ class ScannetEvaluator:
 
     def evaluate(self) -> "OrderedDict[str, float]":
         predictions = self._predictions
+        if self._distributed:
+            predictions = gather_predictions(predictions)
+            if not is_main_process():
+                return OrderedDict()
         if len(predictions) == 0:
             logger.warning("ScannetEvaluator received no predictions")
             return OrderedDict()

@@ -16,8 +16,7 @@ path (`utils/vis.py:122-393`):
   * optional `webvis` coordinate flip (diag(-1,1,-1) @ diag(-1,-1,1)).
 
 Meshes are plain numpy containers (`TexturedMesh`), not pytorch3d
-structures.  The RLE-input variant `get_single_image_mesh_plane` comes
-with the evaluation path.
+structures.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ import cv2
 import numpy as np
 
 from ..native import earcut
+from ..utils.rle import rle_decode
 from ..utils.camera import get_pcd, project2D
 
 TARGET_UV_SIZE = 300
@@ -124,7 +124,7 @@ def get_single_image_mesh_arti(plane_params: np.ndarray,
     """(N, 3) stored planes + (N, H, W) binary masks -> textured meshes.
 
     Port of `utils/vis.py:256-393` (the `_plane` variant at 134-253 differs
-    only in taking polygons/RLE input).
+    only in taking polygons/RLE input: `get_single_image_mesh_plane`).
     """
     plane_params = np.array(plane_params, np.float64).reshape(-1, 3)
     # stored -> camera swap (in place in the reference)
@@ -135,6 +135,25 @@ def get_single_image_mesh_arti(plane_params: np.ndarray,
 
     poly_segs = [binary_mask_to_polygon(np.asarray(m)) for m in segmentations]
     return _build_meshes(poly_segs, norms, offsets, img, height, width,
+                         focal_length, webvis)
+
+
+def get_single_image_mesh_plane(plane_params, segmentations, img,
+                                height: int = 480, width: int = 640,
+                                focal_length: float = 571.623718,
+                                webvis: bool = False
+                                ) -> Tuple[List[TexturedMesh], List[np.ndarray]]:
+    """Polygon / RLE segmentation variant (`utils/vis.py:134-253`): each
+    segmentation is a list of (N, 2) rings or a COCO RLE dict, decoded with
+    `utils.rle.rle_decode`."""
+    plane_params = np.array(plane_params, np.float64).reshape(-1, 3)
+    plane_params = np.stack([plane_params[:, 0], -plane_params[:, 2],
+                             plane_params[:, 1]], axis=1)
+    offsets = np.linalg.norm(plane_params, axis=1)
+    norms = plane_params / np.maximum(offsets, 1e-12)[:, None]
+    if segmentations and isinstance(segmentations[0], dict):
+        segmentations = [binary_mask_to_polygon(rle_decode(s)) for s in segmentations]
+    return _build_meshes(segmentations, norms, offsets, img, height, width,
                          focal_length, webvis)
 
 

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import DepthHeadConfig
+from ..parallel.dist import all_reduce_sum, global_count, process_count
 
 _DECONV = {1: (128, 128), 2: (256, 128), 3: (256, 128), 4: (256, 128), 5: (256, 64)}
 
@@ -37,15 +38,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     one-pass E[x^2] - E[x]^2 loses the variance's leading digits to
     cancellation where a channel's mean is large against its spread, as on
     the few cells of the coarse lanes: there a 1e-6 change of the input
-    moves the head's gradients by 1e-3 of their size (ROADMAP.md section 3)."""
+    moves the head's gradients by 1e-3 of their size (ROADMAP.md section 3).
+
+    Under a process group the batch statistics are the global batch's, as
+    under JAX's mesh step: the sums and counts are all-reduced for the
+    mean, then the squared deviations for the variance, both through a
+    differentiable all-reduce (`parallel.dist.all_reduce_sum`)."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.var(dim=(0, 2, 3), unbiased=False)
+        if process_count() == 1:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+        else:
+            n = global_count(torch.tensor(float(xf.numel() // xf.shape[1]),
+                                          device=xf.device))
+            mean = all_reduce_sum(xf.sum(dim=(0, 2, 3))) / n
+            dev2 = (xf - mean[None, :, None, None]).square().sum(dim=(0, 2, 3))
+            var = all_reduce_sum(dev2) / n
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)

@@ -264,6 +264,23 @@ class PlaneRCNN(nn.Module):
             result["detections"] = dataclasses.replace(det, planes=refined["plane_params"])
         return result
 
+    @torch.no_grad()
+    def inference_probe(self, images: torch.Tensor) -> Dict[str, Any]:
+        """Inference with the per-stage intermediates exposed, for the
+        goldens harness (`evaluation/goldens.py`; JAX
+        `PlaneRCNN.inference_probe`, the reference's eval stages
+        `modeling/meta_arch/planercnn.py:148-184`): FPN features p2-p6
+        (NCHW), RPN proposals (boxes, objectness scores, valid), the final
+        detections and the depth."""
+        out = self.inference(images)
+        proposals = out["proposals"]
+        return {"features": out["features"],
+                "proposal_boxes": proposals["boxes"],
+                "proposal_logits": proposals["scores"],
+                "proposal_valid": proposals["valid"],
+                "detections": out["detections"],
+                "depth": out.get("depth")}
+
     def _refine(self, images: torch.Tensor, dets: Detections,
                 depth: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The refine pass shared by inference and training: soft masks
@@ -288,7 +305,12 @@ class PlaneRCNN(nn.Module):
                 "plane_params": torch.stack([o[1] for o in outs]),
                 "soft_masks": soft, "valid": valid}
 
-    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+    def forward(self, images: torch.Tensor, *train_args) -> Any:
+        """`inference(images)`; with the training arguments (gt_boxes,
+        gt_classes, gt_valid, generators) `train_forward`, the call that
+        DistributedDataParallel wraps (`train/train_step.py`)."""
+        if train_args:
+            return self.train_forward(images, *train_args)
         return self.inference(images)
 
     # ------------------------------------------------------------------ #

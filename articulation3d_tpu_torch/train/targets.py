@@ -21,6 +21,11 @@ boxes (B, G, 4) XYXY pixels, classes (B, G), valid (B, G), masks
 (B, G, H, W), planes (B, G, 3), rot_axis / tran_axis (B, G, 4) as
 [sin, cos, offset, valid], depth (B, H_d, W_d).
 
+Under a process group each rank holds a contiguous share of the batch,
+and every normaliser that counts over the batch is the global count
+(`parallel.dist.global_count`), so a rank's losses are its share of the
+global batch's (`train_step.py`).
+
 Randomness: each image draws from its own `torch.Generator`
 (`per_image_keys`), and every draw goes through `_uniform`; random
 permutations are uniform priorities ranked by a stable argsort, as in the
@@ -41,6 +46,7 @@ from ..models.refine_head import refine_loss_single
 from ..ops.box_ops import encode_deltas, pairwise_iou, smooth_l1_loss
 from ..ops.roi_align import _sample_coords
 from ..ops.roi_align_cuda import _separable_weights
+from ..parallel.dist import global_count, process_count
 
 
 def _uniform(generator: torch.Generator, n: int, device) -> torch.Tensor:
@@ -152,7 +158,8 @@ def rpn_losses(rpn_raw: Dict, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
         matched = torch.gather(gt_boxes, 1, matched_idx[..., None].expand(-1, -1, 4))
         tgt = encode_deltas(anchors[None], matched, rcfg.bbox_reg_weights)
 
-    normalizer = float(rcfg.batch_size_per_image * b)
+    # every rank holds the same number of images
+    normalizer = float(rcfg.batch_size_per_image * b * process_count())
     ce = _bce_with_logits(logits, pos.to(torch.float32))
     loss_cls = torch.where(pos | neg, ce, torch.zeros_like(ce)).sum() / normalizer
     reg = smooth_l1_loss(deltas, tgt, rcfg.smooth_l1_beta)
@@ -257,8 +264,8 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
         m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
         return torch.where(m, x, torch.zeros_like(x)).sum()
 
-    num_sampled = sampled.sum().clamp(min=1).to(torch.float32)
-    num_fg = fg.sum().clamp(min=1).to(torch.float32)
+    num_sampled = global_count(sampled.sum()).clamp(min=1).to(torch.float32)
+    num_fg = global_count(fg.sum()).clamp(min=1).to(torch.float32)
     nc = mcfg.roi_heads.num_classes
     safe_cls = cls.clamp(0, nc - 1)
     rows = torch.arange(b * s, device=cls.device)
@@ -301,12 +308,12 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
         tran_pred = flat(outputs["tran_pred"]).to(torch.float32)
         rvalid = fg & (rot_gt[:, 3] >= 0.5)
         rl = smooth_l1_loss(rot_pred, rot_gt[:, :3], acfg.smooth_l1_beta)
-        n_r = (rvalid.sum() * 3).clamp(min=1).to(torch.float32)
+        n_r = (global_count(rvalid.sum()) * 3).clamp(min=1).to(torch.float32)
         losses["loss_rot_axis"] = acfg.loss_weight * masked_sum(rl, rvalid) / n_r
         tvalid = fg & (tran_gt[:, 3] >= 0.5)
         tl = smooth_l1_loss(double_angle(tran_pred), double_angle(tran_gt[:, :2]),
                             acfg.smooth_l1_beta)
-        n_t = (tvalid.sum() * 2).clamp(min=1).to(torch.float32)
+        n_t = (global_count(tvalid.sum()) * 2).clamp(min=1).to(torch.float32)
         losses["loss_tran_axis"] = acfg.loss_weight * masked_sum(tl, tvalid) / n_t
 
     if "refine" in outputs:
@@ -323,5 +330,5 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
         mask = (gtd > 1e-4).to(torch.float32)
         losses["depth_loss"] = (mcfg.depth_head.loss_weight
                                 * ((pred - gtd).abs() * mask).sum()
-                                / mask.sum().clamp(min=1.0))
+                                / global_count(mask.sum()).clamp(min=1.0))
     return losses

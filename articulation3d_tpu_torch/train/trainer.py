@@ -1,4 +1,4 @@
-"""Training host loop: the reference `Trainer(DefaultTrainer)` for one card.
+"""Training host loop: the reference `Trainer(DefaultTrainer)`.
 
 Counterpart of `articulation3d_tpu/train/trainer.py`: a model built from the
 config, the optimizer and LR schedule, warm start or resume, the loader
@@ -10,8 +10,19 @@ and an evaluation every `test.eval_period` (its failure is logged, not
 raised, as in JAX).  `test()` runs the evaluators of `cfg.datasets_test`.
 
 An explicit `loader` (any iterable of batch dicts in the `train_step`
-contract) replaces the dataset loader.  The JAX trainer's mesh, k-step
-dispatch and async feeder are TPU-client machinery and are not ported.
+contract) replaces the dataset loader.  The JAX trainer's k-step dispatch
+and async feeder are TPU-client machinery and are not ported.
+
+Data parallelism (the JAX trainer's mesh, `trainer.py:54-70`): under a
+process group of W > 1 ranks (`parallel.init_distributed`, one process per
+card) the schedule goes through `auto_scale_workers(cfg, W)`, the model is
+wrapped in DistributedDataParallel, and each rank takes its contiguous
+1/W of every global batch of `solver.ims_per_batch` images, in the same
+`RandomState(seed + epoch)` order (`train_step.py` holds the step's
+semantics).  The main process alone writes checkpoints (the unwrapped
+module's keys, so they resume at any world size), `metrics.json` and the
+visualisations; every rank runs the evaluation on its share of the images
+with distributed evaluators.  A world of one takes the one-process path.
 """
 
 from __future__ import annotations
@@ -24,11 +35,13 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
-from ..config import Config
+from ..config import Config, auto_scale_workers
 from ..data.catalog import get_dataset_dicts, get_metadata
 from ..data.mapper import DetectionLoader, PlaneRCNNMapper, PrefetchLoader
 from ..models.planercnn import PlaneRCNN
+from ..parallel import is_main_process, make_mesh, process_count, process_index, shard_batch
 from ..structures import resolve_device
 from ..weights import load_torch_state_dict, random_state_dict, schema_options, warm_start
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -38,28 +51,34 @@ from .train_step import to_device, train_step
 logger = logging.getLogger(__name__)
 
 
-def build_evaluator(dataset_name: str, cfg: Config, output_dir: str):
+def build_evaluator(dataset_name: str, cfg: Config, output_dir: str,
+                    distributed: bool = False):
     """The evaluator of a dataset's registered evaluator type (reference
     `Trainer.build_evaluator`, `tools/train_net.py:25-33`)."""
     etype = get_metadata(dataset_name).evaluator_type
     if etype == "arti":
         from ..evaluation import ArtiEvaluator
-        return ArtiEvaluator(dataset_name, cfg, distributed=False, output_dir=output_dir)
+        return ArtiEvaluator(dataset_name, cfg, distributed=distributed,
+                             output_dir=output_dir)
     if etype == "mp3d":
         from ..evaluation import ScannetEvaluator
-        return ScannetEvaluator(dataset_name, cfg, distributed=False, output_dir=output_dir)
+        return ScannetEvaluator(dataset_name, cfg, distributed=distributed,
+                                output_dir=output_dir)
     raise NotImplementedError(etype)
 
 
 def build_train_loader(cfg: Config, max_instances: int = 20) -> PrefetchLoader:
-    """Batches of `solver.ims_per_batch` images from `cfg.datasets_train`,
-    reshuffled each epoch from `cfg.seed`, mapped on one prefetch thread."""
+    """This rank's share of batches of `solver.ims_per_batch` images from
+    `cfg.datasets_train`, reshuffled each epoch from `cfg.seed`, mapped on
+    one prefetch thread."""
     records: List[dict] = []
     for name in cfg.datasets_train:
         records.extend(get_dataset_dicts(name))
     mapper = PlaneRCNNMapper(cfg, is_train=True, max_instances=max_instances)
     return PrefetchLoader(DetectionLoader(records, mapper, cfg.solver.ims_per_batch,
-                                          shuffle=True, seed=cfg.seed))
+                                          shuffle=True, seed=cfg.seed,
+                                          rank=process_index(),
+                                          world_size=process_count()))
 
 
 class Trainer:
@@ -69,23 +88,39 @@ class Trainer:
     `resume_or_load` warm-starts from a d2 `.pth`/`.pkl`, a checkpoint of
     this trainer or a directory of them, or resumes from the newest
     checkpoint in `cfg.output_dir`.  Sampling draws come from one
-    `torch.Generator` on the device, seeded with `cfg.seed + 1`.  Batches
-    come from `loader`, or, when it is None, from
+    `torch.Generator` on the device, seeded with `cfg.seed + 1` (on every
+    rank).  Batches come from `loader`, or, when it is None, from
     `build_train_loader(cfg, max_instances)`, built at the first step; one
-    iterator over it serves every `train` call.
+    iterator over it serves every `train` call.  Under a process group an
+    explicit `loader` yields global batches, of which each rank keeps its
+    rows.  `model` is the PlaneRCNN; `step_model` is what the step calls:
+    the model, or its DistributedDataParallel wrapper.
     """
 
     def __init__(self, cfg: Config, loader: Optional[Iterable[Dict]] = None, device=None,
                  max_instances: int = 20):
         self.device = resolve_device(device)
+        world = process_count()
+        cfg = auto_scale_workers(cfg, world)
         self.cfg = cfg
         self.loader = loader
+        self._shard = loader is not None and world > 1
         self.max_instances = max_instances
         self._batches = None
         model = PlaneRCNN(cfg)
         warm_start(model, random_state_dict(cfg.seed, **schema_options(cfg.model)))
         self.model = model.to(self.device).train()
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
+        self.step_model = self.model
+        if world > 1:
+            # after build_optimizer: DDP syncs only the parameters that
+            # train; the buffers (BatchNorm statistics of global batches)
+            # agree on every rank by construction
+            ids = ([self.device.index if self.device.index is not None
+                    else torch.cuda.current_device()]
+                   if self.device.type == "cuda" else None)
+            self.step_model = DistributedDataParallel(self.model, device_ids=ids,
+                                                      broadcast_buffers=False)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.iter = 0
         self.test_walls: Dict[str, Dict[str, float]] = {}
@@ -121,10 +156,11 @@ class Trainer:
         if self._batches is None:
             self._batches = iter(self.loader)
         try:
-            return next(self._batches)
+            batch = next(self._batches)
         except StopIteration:
             self._batches = iter(self.loader)
-            return next(self._batches)
+            batch = next(self._batches)
+        return shard_batch(make_mesh(), batch) if self._shard else batch
 
     def train(self, max_iter: Optional[int] = None) -> List[Dict[str, float]]:
         """Run steps until `max_iter` (default `solver.max_iter`) are done.
@@ -141,14 +177,14 @@ class Trainer:
             t_data = time.perf_counter()
             batch = self._next_batch()
             t_step = time.perf_counter()
-            metrics = train_step(self.model, self.optimizer, self.scheduler,
+            metrics = train_step(self.step_model, self.optimizer, self.scheduler,
                                  to_device(batch, self.device), self.generator)
             rec = {k: float(v) for k, v in metrics.items()}   # waits for the step
             rec["data_s"] = t_step - t_data
             rec["wall_s"] = time.perf_counter() - t_step
             records.append(rec)
             self.iter += 1
-            if self.iter % 20 == 0 or self.iter == start + 1:
+            if is_main_process() and (self.iter % 20 == 0 or self.iter == start + 1):
                 s_per_it = (time.perf_counter() - t0) / (self.iter - start)
                 losses = {k: v for k, v in rec.items()
                           if k not in ("total_loss", "data_s", "wall_s")}
@@ -166,12 +202,13 @@ class Trainer:
 
     def _hooks(self, metrics_path: str) -> None:
         """Checkpoint, visualisation and evaluation whose period the step
-        count reaches."""
+        count reaches (the first two on the main process only)."""
         cfg, it = self.cfg, self.iter
+        main = is_main_process()
         due = lambda period: period > 0 and it % period == 0
-        if due(cfg.solver.checkpoint_period):
+        if main and due(cfg.solver.checkpoint_period):
             save_checkpoint(cfg.output_dir, self.model, self.optimizer, self.scheduler, it)
-        if due(cfg.test.vis_period):
+        if main and due(cfg.test.vis_period):
             try:
                 from .vis_hook import save_train_vis
                 logger.info("training vis written to %s", save_train_vis(self, it))
@@ -180,6 +217,8 @@ class Trainer:
         if due(cfg.test.eval_period):
             try:
                 results = self.test()
+                if not main:
+                    return
                 with open(metrics_path, "a") as f:
                     for name, res in results.items():
                         f.write(json.dumps({"iteration": it, "eval_dataset": name,
@@ -196,19 +235,26 @@ class Trainer:
         reaches the evaluator (conf 0), with its mask RLE-encoded, at a
         batch of `max(ims_per_batch, 1)`.  The model is handed back in train
         mode.  `test_walls[name]` holds the walls of the mapper, inference,
-        RLE encoding and the evaluator, in seconds."""
+        RLE encoding and the evaluator, in seconds.  Under a process group
+        each rank runs a contiguous share of the images and the evaluators
+        gather them: the main process returns the results, the others
+        empty dicts."""
         from ..utils.rle import rle_encode
         from ..video.pipeline import VideoPipeline
 
         cfg = self.cfg
+        world, rank = process_count(), process_index()
         results = {}
         try:
             pipeline = VideoPipeline(cfg, self.model, batch_size=max(cfg.solver.ims_per_batch, 1),
-                                     conf_threshold=0.0, device=self.device)
+                                     conf_threshold=0.0, device=self.device,
+                                     distributed=False)
             for name in cfg.datasets_test:
-                evaluator = build_evaluator(name, cfg, cfg.output_dir)
+                evaluator = build_evaluator(name, cfg, cfg.output_dir, distributed=world > 1)
                 evaluator.reset()
                 records = get_dataset_dicts(name)
+                per = -(-len(records) // world)
+                records = records[rank * per:(rank + 1) * per]
                 mapper = PlaneRCNNMapper(cfg, is_train=False)
                 t0 = time.perf_counter()
                 samples = [mapper(rec) for rec in records]

@@ -43,7 +43,7 @@ def save_train_vis(trainer, iteration: int) -> str:
         if pipeline is None:
             from ..video.pipeline import VideoPipeline
             pipeline = VideoPipeline(cfg, trainer.model, batch_size=1, conf_threshold=0.0,
-                                     device=trainer.device)
+                                     device=trainer.device, distributed=False)
             trainer._vis_pipeline = pipeline
         else:
             trainer.model.eval()

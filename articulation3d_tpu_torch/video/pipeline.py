@@ -11,6 +11,10 @@ depth come back to the host, where confidence trimming builds the
 `FramePrediction`s.  The depth override reproduces the reference's
 `PlaneRCNN_Branch.process`: EVAL-intrinsics rays (f = 571.623718), offset =
 mean of n . xyz inside each pasted mask; empty masks keep their plane.
+
+Under a process group (JAX `use_mesh`, which shards the frames over the
+device mesh) each rank runs a contiguous share of the frames and the
+predictions and depths are all-gathered, in frame order, to every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..config import Config
 from ..models.planercnn import PlaneRCNN
 from ..ops.mask_paste import paste_masks
 from ..ops.preprocess import preprocess_images
+from ..parallel.dist import gather_predictions, process_count, process_index
 from ..structures import FramePrediction, resolve_device
 from ..utils.camera import get_k_inv_dot_xy_1_eval
 from ..utils.coords import camera_to_plane, plane_to_camera
@@ -134,12 +139,18 @@ def make_inference_step(config: Config, model: PlaneRCNN,
 
 
 class VideoPipeline:
-    """Host wrapper: list of frames -> per-frame `FramePrediction`s."""
+    """Host wrapper: list of frames -> per-frame `FramePrediction`s.
+
+    `distributed` (default: under a process group of more than one rank)
+    splits each `run` over the ranks (module docstring); every rank must
+    call `run` with the same frames."""
 
     def __init__(self, config: Config, model: PlaneRCNN, batch_size: int = 8,
                  conf_threshold: float = 0.7, output_height: Optional[int] = None,
-                 output_width: Optional[int] = None, device=None):
+                 output_width: Optional[int] = None, device=None,
+                 distributed: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.distributed = process_count() > 1 if distributed is None else distributed
         self.config = config
         self.model = model.to(self.device).eval()
         self.conf_threshold = conf_threshold
@@ -154,10 +165,22 @@ class VideoPipeline:
 
     def run(self, frames: Sequence[np.ndarray],
             verbose: bool = False) -> List[FramePrediction]:
-        """frames: (H, W, 3) uint8 BGR arrays -> trimmed FramePredictions.
-        Short last chunks are padded with repeats of their last frame.
-        verbose: per-chunk wall time on stderr (the first includes the
-        kernel build and cuDNN autotuning)."""
+        """frames: (H, W, 3) uint8 BGR arrays -> trimmed FramePredictions,
+        and `self.depths`, one per frame.  Short last chunks are padded with
+        repeats of their last frame.  verbose: per-chunk wall time on
+        stderr (the first includes the kernel build and cuDNN autotuning).
+        `chunk_walls` and `pool_valid` describe this rank's share."""
+        if not self.distributed:
+            return self._run(frames, verbose)
+        per = -(-len(frames) // process_count())
+        lo = process_index() * per
+        mine = self._run(frames[lo:lo + per], verbose)
+        shares = gather_predictions([(mine, self.depths)])
+        self.depths = [d for _, depths in shares for d in depths]
+        return [p for preds, _ in shares for p in preds]
+
+    def _run(self, frames: Sequence[np.ndarray],
+             verbose: bool) -> List[FramePrediction]:
         preds: List[FramePrediction] = []
         depths: List[Optional[np.ndarray]] = []
         self.chunk_walls = []

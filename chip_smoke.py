@@ -62,7 +62,13 @@ non-zero exit):
      `--save-obj` into `.chip_smoke/cli/`: `output.mp4` (or, without an
      encoder, the frames handed to the writer) and
      `frame_0000/arti_pred.{obj,mtl}` exist and are non-empty; K1's launches
-     on this path, and the walls of its stages;
+     on this path, and the walls of its stages; then "[export-extra]": the
+     rest of export and vis on that pipeline's detections of frames 0-1 (at
+     most 10 each, into `.chip_smoke/export_extra/`): RLE-input plane
+     meshes, world transforms, camera and axis primitives, the .ply/.obj
+     writers, the webview tilt, `render_img` (render_0.png), the normal
+     sphere, the affinity heatmap, match and box drawing, the labelled
+     overlays, with the wall of each;
   9. the recipe from a dataset on disk, into `.chip_smoke/datasets` and
      `.chip_smoke/recipe`: (a) a synthetic 480x640 dataset in the schema of
      tools/generate_arti.py (48 train, 16 val, 16 test records, a quarter
@@ -98,11 +104,29 @@ non-zero exit):
      serving batch, K1 against its plain version on its three pools
      ("[drpn-pools]"), then proposals and detections of the kernel route
      against the plain route;
- 13. a JSON line of kernel measurements, then the device JSON as the last
+ 13. "[ddp-1]": an NCCL process group of one and phase 5's stage-1 step
+     (ims 16) wrapped in DistributedDataParallel against the unwrapped step
+     from the same state (losses, parameters, steps/s) and K1 and K2 of the
+     wrapped step against their plain versions ("[ddp-pools]");
+ 14. "[ddp-2]": two processes (`chip_smoke.py --ddp-rank R 2 STORE OUT`)
+     on the one card over gloo, each with 8 of a float32 global batch of
+     16, against this process at 16: two stage-1 steps (and the steps/s of
+     10 more), `Trainer.test` with both evaluators distributed over phase
+     9's arti_val and scannet_val, and `VideoPipeline` over a 32-frame val
+     clip; with more than one card, `--only ddp-cards` runs the same with
+     one process per card over NCCL ("[ddp-cards]", never in a whole run);
+ 15. "[goldens]": a fixture the port's `save_goldens` writes from its probe
+     on the CPU (configs/config.yaml's model at full width, 480x640, phase
+     3's weights, float32, 200 proposals, 20 detections), then the
+     `compare_goldens` CLI on the card with the gather pooler and the
+     kernel;
+ 16. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
-`python3 chip_smoke.py --only f1,refine-serve,refine-train,drpn` builds the
-kernels and runs just the named phases of 2 and 10-12 (any subset); it is
+`python3 chip_smoke.py --only f1,refine-serve,refine-train,drpn,ddp-1,ddp-2,
+ddp-cards,export-extra,goldens` builds the kernels and runs just the named phases of
+2, 8 and 10-15 (any subset; "ddp-2" writes phase 9's dataset if it is
+missing); it is
 for iterating on those phases, makes no kernel line, and its last line,
 `{"partial": true, "phases": [...], ...}`, has no "ok" key: it is never
 the result of a whole run.
@@ -536,6 +560,7 @@ def main() -> int:
 
     # 8. the CLI's body with --save-obj --------------------------------------
     k1_cli = phase_artefacts(rac, pipe, clip, card)
+    phase_export_extra(pipe, clip, card)
     del model, pipe
     torch.cuda.empty_cache()
 
@@ -547,10 +572,18 @@ def main() -> int:
     rtrain = phase_refine_train(rac, card)
     drpn = phase_drpn(rac, card)
 
-    # 13. results --------------------------------------------------------
+    # 13-14. data parallelism: DDP over NCCL at one rank, two ranks over gloo
+    ddp1 = phase_ddp1(rac, card, train)
+    phase_ranks(card, 2, "ddp-2")
+
+    # 15. the goldens harness: a CPU-written fixture, the CLI on the card ----
+    phase_goldens(rac, card)
+
+    # 16. results --------------------------------------------------------
     max_err = max(_main_path_err(rac, captured), recipe["err"], f1["k1"], rtrain["err"],
-                  drpn["err"])
-    k1_new = {"refine_serve": rserve["k1"], "refine_train": rtrain["k1"], "drpn": drpn["k1"]}
+                  drpn["err"], ddp1["err1"])
+    k1_new = {"refine_serve": rserve["k1"], "refine_train": rtrain["k1"], "drpn": drpn["k1"],
+              "ddp": ddp1["k1"]}
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -576,11 +609,11 @@ def main() -> int:
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_adj.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:519",
-        "launches": train["k2"] + recipe["k2"] + rtrain["k2"],
+        "launches": train["k2"] + recipe["k2"] + rtrain["k2"] + ddp1["k2"],
         "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0,
                              "recipe": recipe["k2"], "refine_serve": 0,
-                             "refine_train": rtrain["k2"], "drpn": 0},
-        "max_abs_err": max(train["adj_err"], f1["k2"]),
+                             "refine_train": rtrain["k2"], "drpn": 0, "ddp": ddp1["k2"]},
+        "max_abs_err": max(train["adj_err"], f1["k2"], ddp1["err2"]),
         "ms": train["adj_ms"],
         "plain_ms": train["adj_plain_ms"],
         "bound_ms": train["adj_bound_ms"],
@@ -2271,8 +2304,539 @@ def phase_drpn(rac, card) -> dict:
     return dict(k1=k1, err=err)
 
 
+# --------------------------------------------------------------------------- #
+# 13-16. data parallelism, the rest of export and vis, the goldens harness
+# --------------------------------------------------------------------------- #
+
+def _param_samples(model) -> dict:
+    """A strided sample (at most 4096 values, float64 on the host) of every
+    trainable parameter."""
+    out = {}
+    for n, p in model.named_parameters():
+        if p.requires_grad:
+            flat = p.detach().reshape(-1)
+            out[n] = flat[::max(1, flat.numel() // 4096)].double().cpu().numpy()
+    return out
+
+
+def _params_agree(a: dict, b: dict, before: dict, rel: float = 1e-3) -> float:
+    """The largest |a - b| of the samples over `rel` x the largest change the
+    steps made to that tensor plus 1e-6 x its magnitude (agreement: <= 1)."""
+    worst = 0.0
+    assert set(a) == set(b) == set(before)
+    for n in b:
+        tol = rel * np.abs(b[n] - before[n]).max() + 1e-6 * np.abs(b[n]).max()
+        worst = max(worst, float(np.abs(a[n] - b[n]).max()) / max(tol, 1e-30))
+    return worst
+
+
+def _stage1_trainer(ims: int, **model_kw):
+    """Phase 5's trainer (configs/step1_bbox.yaml, damped weights) at a
+    global batch of `ims`, and phase 5's synthetic batch of `ims`."""
+    from articulation3d_tpu_torch.train.trainer import Trainer
+    from articulation3d_tpu_torch.weights import load_d2_state_dict
+    cfg = _stage1_config(**model_kw)
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, ims_per_batch=ims,
+                                                 checkpoint_period=0))
+    batch = _train_batch(cfg, ims)
+    trainer = Trainer(cfg, [batch])
+    load_d2_state_dict(trainer.model, {k: v for k, v in _train_weights().items()
+                                       if k in trainer.model.state_dict()})
+    return trainer, batch
+
+
+def phase_ddp1(rac, card, phase5) -> dict:
+    """"[ddp-1]": an NCCL process group of one and phase 5's full-width
+    stage-1 step (ims 16) wrapped in DistributedDataParallel, against the
+    unwrapped step from the same state: the first two steps' losses and
+    the parameters after them, then 12 timed steps of each; K1 and K2 of
+    the wrapped step against their plain versions on its own inputs.
+
+    The bfloat16 trunk rounds its weight gradients to bfloat16 after sums
+    whose order varies from run to run on the card (cuDNN's weight
+    gradients, K2's atomics), so two unwrapped runs differ too: the
+    parameters are held at phase 2's bfloat16 tolerance, 1e-2 x the change
+    two steps make (+ 1e-6 x the magnitude), beside the spread of a second
+    unwrapped run."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from articulation3d_tpu_torch.models import planercnn as pmod
+    from articulation3d_tpu_torch.parallel import init_distributed, process_count
+
+    store = tempfile.mktemp(prefix="ddp1_", dir=os.path.join(ROOT, ".chip_smoke"))
+    assert init_distributed(f"file://{store}", 1, 0, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl" and process_count() == 1
+        plain, _ = _stage1_trainer(16)
+        wrapped, _ = _stage1_trainer(16)
+        wrapped.step_model = DistributedDataParallel(wrapped.model, device_ids=[0],
+                                                     broadcast_buffers=False)
+        before = _param_samples(plain.model)
+        assert all(np.array_equal(v, before[n]) for n, v in
+                   _param_samples(wrapped.model).items())
+        recs_plain = plain.train(2)
+        after_plain = _param_samples(plain.model)
+        again, _ = _stage1_trainer(16)
+        again.train(2)
+        spread = _params_agree(_param_samples(again.model), after_plain, before, rel=1e-2)
+        del again
+        rac.multilevel_roi_align_cuda.launches = 0
+        rac.multilevel_roi_align_adjoint_cuda.launches = 0
+        pools = _record_pools(1)
+        store_pool = []
+        orig = _record_train_pool(pmod, store_pool)
+        try:
+            recs = wrapped.train(2)
+        finally:
+            pools.restore()
+            pmod.multilevel_roi_align_train = orig
+        after_wrapped = _param_samples(wrapped.model)
+        recs += wrapped.train(14)
+        torch.cuda.synchronize()
+        k1 = rac.multilevel_roi_align_cuda.launches
+        k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+        assert k1 == 14 and k2 == 14, (k1, k2)
+        recs_plain += plain.train(14)
+        loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                       for a, b in zip(recs[:2], recs_plain[:2]) for k in b
+                       if k not in ("data_s", "wall_s"))
+        param_ratio = _params_agree(after_wrapped, after_plain, before, rel=1e-2)
+        rate = lambda rs: len(rs[2:]) / sum(r["wall_s"] for r in rs[2:])
+        sps_ddp, sps_plain = rate(recs), rate(recs_plain)
+        _log(f"[ddp-1] NCCL group of 1, configs/step1_bbox.yaml at ims 16 (phase 5's "
+             f"weights and batch, {wrapped.cfg.model.dtype} trunk), DistributedDataParallel "
+             f"against the unwrapped step from the same state: two steps' losses within "
+             f"{loss_err:.3e} relative (gate 1e-4), parameters after them at "
+             f"{param_ratio:.4f} of the gate (1e-2 x the change + 1e-6 x the magnitude; a "
+             f"second unwrapped run from the same state at {spread:.4f}); "
+             f"12 timed steps wrapped {sps_ddp:.4f} steps/s, then unwrapped "
+             f"{sps_plain:.4f} steps/s in this phase, phase 5 {phase5['steps_per_s']:.4f} "
+             f"steps/s; K1 {k1}, K2 {k2} over 14 wrapped steps ({card})")
+        assert loss_err <= 1e-4 and param_ratio <= 1.0, (loss_err, param_ratio)
+        err1 = _main_path_err(rac, pools.calls, tag="ddp-pools")
+        item = store_pool[0]
+        feats, boxes, kw = item["features"], item["boxes"], item["kw"]
+        g = item["g"].reshape(-1, *item["g"].shape[2:]).contiguous()
+        opts = dict(strides=STRIDES, output_size=kw["output_size"],
+                    sampling_ratio=kw["sampling_ratio"], aligned=kw["aligned"])
+        shapes = [f.shape for f in feats]
+        pr = rac._prepare(shapes, boxes, valid=kw["valid"], **opts)
+        _, record = rac._forward_kernel(feats, boxes, kw["valid"], dict(opts, min_level=2))
+        got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **opts)
+        want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
+        torch.cuda.synchronize()
+        err2 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        _log(f"[ddp-pools] K2 against the plain version on the wrapped step's cotangent "
+             f"({tuple(g.shape)}): err {err2:.3e} (tol {1e-4 * scale:.3e})")
+        assert err2 <= 1e-4 * scale, (err2, scale)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    del plain, wrapped, pools, store_pool
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k2=k2, err1=err1, err2=err2, steps_per_s=sps_ddp,
+                plain_steps_per_s=sps_plain, param_ratio=param_ratio, spread=spread)
+
+
+def _eval_trainer():
+    """A `Trainer` on configs/config.yaml (every head but refine, score
+    threshold 0) with phase 3's weights, evaluating arti_val and
+    scannet_val of phase 9's dataset at a batch of 8."""
+    from articulation3d_tpu_torch.train.trainer import Trainer
+    from articulation3d_tpu_torch.weights import load_d2_state_dict
+    cfg = _serving_config()
+    cfg = cfg.replace(datasets_test=("arti_val", "scannet_val"),
+                      output_dir=os.path.join(ROOT, ".chip_smoke", "ranks_eval"),
+                      solver=dataclasses.replace(cfg.solver, ims_per_batch=8))
+    trainer = Trainer(cfg, [])
+    load_d2_state_dict(trainer.model, _serving_weights(cfg))
+    return trainer
+
+
+def _val_frames():
+    """The 32 frames of phase 9's first val clip."""
+    from articulation3d_tpu_torch.video.io import read_frames
+    clips = os.path.join(ROOT, ".chip_smoke", "datasets", "clips")
+    frames, _ = read_frames(os.path.join(clips, sorted(os.listdir(clips))[0]), 480, 640)
+    return frames
+
+
+def _ranks_payload(distributed: bool) -> dict:
+    """What "[ddp-2]" and "[ddp-cards]" compare, from one process or from
+    each rank: two float32 stage-1 steps at a global batch of 16 (each rank
+    its share) and 10 more timed, the two evaluators through
+    `Trainer.test` and `VideoPipeline` on a val clip."""
+    import torch
+
+    from articulation3d_tpu_torch.ops import roi_align_cuda as rac
+    from articulation3d_tpu_torch.video.pipeline import VideoPipeline
+
+    trainer, _ = _stage1_trainer(16, dtype="float32")      # parity in float32
+    before = _param_samples(trainer.model)
+    rac.multilevel_roi_align_cuda.launches = 0
+    rac.multilevel_roi_align_adjoint_cuda.launches = 0
+    recs = trainer.train(2)
+    torch.cuda.synchronize()
+    out = {"records": [{k: v for k, v in r.items() if k not in ("data_s", "wall_s")}
+                       for r in recs],
+           "before": before, "after": _param_samples(trainer.model),
+           "wrapped": type(trainer.step_model).__name__,
+           "k1": rac.multilevel_roi_align_cuda.launches,
+           "k2": rac.multilevel_roi_align_adjoint_cuda.launches,
+           "device": str(next(trainer.model.parameters()).device)}
+    timed = trainer.train(14)[2:]
+    out["steps_per_s"] = len(timed) / sum(r["wall_s"] for r in timed)
+    del trainer
+    torch.cuda.empty_cache()
+    ev = _eval_trainer()
+    t0 = time.perf_counter()
+    out["eval"] = ev.test()
+    out["eval_s"] = time.perf_counter() - t0
+    pipe = VideoPipeline(ev.cfg, ev.model, batch_size=8, conf_threshold=0.0,
+                         distributed=distributed)
+    t0 = time.perf_counter()
+    preds = pipe.run(_val_frames())
+    out["pipeline_s"] = time.perf_counter() - t0
+    out["preds"] = [{f: getattr(p, f) for f in ("boxes", "scores", "classes", "planes",
+                                                 "rot_axis", "tran_axis")}
+                    | {"mask_px": p.masks.sum(axis=(1, 2))} for p in preds]
+    out["depths"] = pipe.depths
+    del ev, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranks_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of "[ddp-2]" or "[ddp-cards]" (`chip_smoke.py --ddp-rank R
+    WORLD STORE OUT`): `init_distributed` picks NCCL when every rank has
+    its own card and gloo otherwise (NCCL refuses two ranks on one device);
+    the payload is pickled to OUT/rank{R}.pkl."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from articulation3d_tpu_torch.data.catalog import register_builtin_datasets
+    from articulation3d_tpu_torch.ops import roi_align_cuda as rac
+    from articulation3d_tpu_torch.parallel import barrier, init_distributed, process_count
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert init_distributed(f"file://{store}", world, rank, timeout_s=600)
+    import torch.distributed as dist
+    expected = "nccl" if world <= torch.cuda.device_count() else "gloo"
+    assert dist.get_backend() == expected and process_count() == world
+    rac.build_kernels()
+    register_builtin_datasets(os.path.join(ROOT, ".chip_smoke", "datasets"))
+    payload = _ranks_payload(distributed=True)
+    payload["backend"] = dist.get_backend()
+    barrier()
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(payload, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dicts_agree(a, b) -> float:
+    """The largest difference between two evaluator dicts with the same
+    keys in the same order (NaN equal to NaN)."""
+    assert list(a) == list(b), (list(a), list(b))
+    worst = 0.0
+    for k in a:
+        if isinstance(a[k], dict):
+            worst = max(worst, _dicts_agree(a[k], b[k]))
+            continue
+        x, y = float(a[k]), float(b[k])
+        if np.isnan(x) or np.isnan(y):
+            assert np.isnan(x) and np.isnan(y), (k, x, y)
+            continue
+        worst = max(worst, abs(x - y))
+    return worst
+
+
+def phase_ranks(card, world: int, tag: str) -> dict:
+    """`world` processes (`ranks_worker`) against this process: two float32
+    stage-1 steps at a global batch of 16 split over the ranks, their
+    steps/s over 10 more, the two evaluators through `Trainer.test` on phase
+    9's arti_val and scannet_val, and `VideoPipeline` on a val clip of 32
+    frames.  "[ddp-2]": two ranks on the one card over gloo; "[ddp-cards]":
+    one rank per card over NCCL, with more than one card."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from articulation3d_tpu_torch.data.catalog import register_builtin_datasets
+
+    data_root = os.path.join(ROOT, ".chip_smoke", "datasets")
+    if not os.path.isdir(data_root):          # phase 9 writes it in a whole run
+        _write_recipe_dataset(data_root)
+    out = os.path.join(ROOT, ".chip_smoke", tag)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    store = os.path.join(out, "store")
+    env = dict(os.environ)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                "LOCAL_WORLD_SIZE"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                               str(r), str(world), store, out], env=env, cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            _log(log[-8000:])
+        assert p.returncode == 0, f"[{tag}] rank {r} exited {p.returncode}"
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    register_builtin_datasets(data_root)
+    one = _ranks_payload(distributed=False)
+
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for t in ranks for a, b in zip(t["records"], one["records"]) for k in b)
+    param_ratio = max(_params_agree(t["after"], one["after"], one["before"]) for t in ranks)
+    same_replicas = all(np.array_equal(ranks[0]["after"][n], t["after"][n])
+                        for t in ranks[1:] for n in ranks[0]["after"])
+    assert one["wrapped"] == "PlaneRCNN"
+    assert all(t["wrapped"] == "DistributedDataParallel" for t in ranks)
+    assert all(t["eval"] == {name: {} for name in one["eval"]} for t in ranks[1:])
+    eval_err = {name: _dicts_agree(ranks[0]["eval"][name], one["eval"][name])
+                for name in one["eval"]}
+    n_frames = len(one["preds"])
+    box_err = max(float(np.abs(a["boxes"] - b["boxes"]).max()) if len(b["boxes"]) else 0.0
+                  for t in ranks for a, b in zip(t["preds"], one["preds"]))
+    same_counts = all(len(a["boxes"]) == len(b["boxes"]) and
+                      np.array_equal(a["classes"], b["classes"])
+                      for t in ranks for a, b in zip(t["preds"], one["preds"]))
+    depth_err = max(float(np.abs(a - b).max()) for t in ranks
+                    for a, b in zip(t["depths"], one["depths"]))
+    per = 16 // world
+    where = ("on the one card" if world > torch.cuda.device_count()
+             else f"on cards {[t['device'] for t in ranks]}")
+    _log(f"[{tag}] {world} processes {where} over {ranks[0]['backend']} ({wall:.1f} s of wall "
+         f"for all), configs/step1_bbox.yaml in float32 at a global batch of 16 ({per} per "
+         f"rank) against one process at 16: two steps' losses within {loss_err:.3e} relative "
+         f"(gate 1e-3), parameters after them at {param_ratio:.4f} of the gate (1e-3 x the "
+         f"change + 1e-6 x the magnitude), the replicas equal {same_replicas}; K1 / K2 per "
+         f"rank over the two steps {[(t['k1'], t['k2']) for t in ranks]}; 12 timed steps "
+         f"{ranks[0]['steps_per_s']:.4f} steps/s = {16 * ranks[0]['steps_per_s']:.3f} "
+         f"images/s, one process {one['steps_per_s']:.4f} steps/s = "
+         f"{16 * one['steps_per_s']:.3f} images/s ({card})")
+    _log(f"[{tag}] Trainer.test with distributed evaluators (16 images each, split over the "
+         f"ranks) against one process: "
+         f"{', '.join(f'{n} max diff {e:.3e}' for n, e in eval_err.items())} (NaN where one "
+         f"process has NaN); ranks 1.. returned empty dicts; walls: ranks "
+         f"{['%.2f' % t['eval_s'] for t in ranks]} s, one process {one['eval_s']:.2f} s "
+         f"({card})")
+    _log(f"[{tag}] VideoPipeline over the ranks ({n_frames} frames split, batch 8) against one "
+         f"process: detections per frame equal {same_counts}, box max err {box_err:.3e} px, "
+         f"depth max err {depth_err:.3e} m; walls ranks "
+         f"{['%.2f' % t['pipeline_s'] for t in ranks]} s, one process "
+         f"{one['pipeline_s']:.2f} s ({card})")
+    assert loss_err <= 1e-3 and param_ratio <= 1.0 and same_replicas, (loss_err, param_ratio)
+    assert all(e <= 1e-6 for e in eval_err.values()), eval_err
+    assert n_frames == 32 and same_counts and box_err <= 1e-3, (box_err, same_counts)
+    torch.cuda.empty_cache()
+    return dict(loss_err=loss_err, param_ratio=param_ratio, eval_err=eval_err,
+                box_err=box_err, wall=wall)
+
+
+def phase_export_extra(pipe, frames, card) -> dict:
+    """"[export-extra]": the rest of export and vis on the CLI's detections
+    (frame 0 and 1 of phase 8's clip, at most 10 detections each): the
+    RLE-input plane meshes, world transforms, camera and axis primitives,
+    the .ply/.obj writers, the webview tilt, `render_img` (render_0.png),
+    the normal sphere, the affinity heatmap, the match and box drawing and
+    the labelled overlays; the wall of each."""
+    from PIL import Image
+
+    from articulation3d_tpu_torch import export, vis
+    from articulation3d_tpu_torch.utils.rle import rle_encode
+
+    out = os.path.join(ROOT, ".chip_smoke", "export_extra")
+    os.makedirs(out, exist_ok=True)
+    preds = pipe.run(frames[:2])
+    dets = [p for p in preds]
+    top = [np.arange(min(10, len(p))) for p in dets]
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        walls[name] = time.perf_counter() - t0
+        return res
+
+    p0 = dets[0]
+    segs = [rle_encode(m.astype(np.uint8)) for m in p0.masks[top[0]]]
+    meshes, uv_maps = timed("get_single_image_mesh_plane", lambda: export.get_single_image_mesh_plane(
+        p0.planes[top[0]], segs, frames[0]))
+    cam = {"position": np.array([0.2, 1.5, -0.3]),
+           "rotation": np.array([np.cos(0.35), 0.0, np.sin(0.35), 0.0])}
+    world = timed("transform_meshes", lambda: export.transform_meshes(meshes, cam))
+    planes_w = timed("get_plane_params_in_global",
+                     lambda: export.get_plane_params_in_global(p0.planes[top[0]], cam))
+    back = timed("get_plane_params_in_local",
+                 lambda: export.get_plane_params_in_local(planes_w, cam))
+    tilted = timed("rotate_mesh_for_webview", lambda: export.rotate_mesh_for_webview(world))
+    cams = timed("get_camera_meshes", lambda: export.get_camera_meshes(
+        [{"position": cam["position"], "lookat": [0.0, 0.0, 1.0], "vertical": [0, 1, 0]}]))
+    axis = timed("get_axis_mesh", lambda: export.primitives.get_axis_mesh(
+        0.02, [0, 0, 1], [0.3, 0.2, 2.0]))
+    verts = np.concatenate([m.verts for m in tilted] + [cams[0][0].verts, axis.verts])
+    offsets = np.cumsum([0] + [len(m.verts) for m in tilted] + [len(cams[0][0].verts)])
+    faces = np.concatenate([m.faces + o for m, o in zip(tilted + [cams[0][0], axis], offsets)])
+    colors = np.full((len(verts), 3), 128)
+    timed("write_ply", lambda: export.write_ply(verts, colors, faces,
+                                                os.path.join(out, "scene.ply")))
+    timed("write_obj", lambda: export.write_obj(verts, None, faces,
+                                                os.path.join(out, "scene.obj")))
+    rendered = timed("render_img", lambda: vis.render_img(out, meshes, uv_maps))
+    sphere = timed("get_normal_figure", lambda: vis.get_normal_figure(
+        p0.planes[top[0][0]] / max(np.linalg.norm(p0.planes[top[0][0]]), 1e-9),
+        [p0.planes[top[0][1:]] / np.maximum(
+            np.linalg.norm(p0.planes[top[0][1:]], axis=1, keepdims=True), 1e-9)]))
+    b0, b1 = dets[0].boxes[top[0]], dets[1].boxes[top[1]]
+    lt = np.maximum(b0[:, None, :2], b1[None, :, :2])
+    rb = np.minimum(b0[:, None, 2:], b1[None, :, 2:])
+    inter = np.clip(rb - lt, 0, None).prod(-1)
+    area = lambda b: (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    iou = inter / np.maximum(area(b0)[:, None] + area(b1)[None] - inter, 1e-9)
+    matching = [int(np.argmax(r)) if r.max() > 0.5 else -1 for r in iou]
+    aff = timed("save_affinity_after_stitch", lambda: vis.save_affinity_after_stitch(
+        iou, len(b0), len(b1), matching, out))
+    pairs = np.asarray([[i, j] for i, j in enumerate(matching) if j >= 0]).reshape(-1, 2)
+    match_img = timed("draw_match", lambda: vis.draw_match(
+        frames[0][:, :, ::-1].copy(), frames[1][:, :, ::-1].copy(), dets[0].box_centers[top[0]],
+        dets[1].box_centers[top[1]], pairs, [1] * len(pairs), factor=1))
+    im1, im2 = timed("draw_bbox", lambda: vis.draw_bbox(
+        Image.fromarray(frames[0][:, :, ::-1].copy()), Image.fromarray(frames[1][:, :, ::-1].copy()),
+        b0.tolist(), b1.tolist(), matching))
+    seg = timed("get_labeled_seg", lambda: vis.get_labeled_seg(
+        p0, 0.0, vis.ArtiVisualizer(frames[0][:, :, ::-1])))
+    gt = {"annotations": [{"bbox": b.tolist(), "bbox_mode": 0, "category_id": 0}
+                          for b in b0[:3]]}
+    gt_seg = timed("get_gt_labeled_seg", lambda: vis.get_gt_labeled_seg(
+        gt, vis.ArtiVisualizer(frames[0][:, :, ::-1])))
+    n_faces = sum(len(m.faces) for m in meshes)
+    _log(f"[export-extra] on the CLI's detections of frames 0-1 ({len(top[0])} and "
+         f"{len(top[1])} of {len(dets[0])} and {len(dets[1])}): {len(meshes)} plane meshes from "
+         f"RLE ({n_faces} faces), scene .ply/.obj of {len(verts)} vertices and {len(faces)} "
+         f"faces, render_0.png {rendered.shape} with {int((rendered < 255).any(-1).sum())} "
+         f"covered pixels, affinity {iou.shape} with {len(pairs)} matches; planes global -> "
+         f"local max err {float(np.abs(back - p0.planes[top[0]]).max()):.3e}; walls "
+         f"{', '.join(f'{k} {v:.4f} s' for k, v in walls.items())} ({card})")
+    assert len(meshes) == len(top[0]) and all(len(m.faces) > 0 for m in meshes)
+    assert os.path.getsize(os.path.join(out, "scene.ply")) > 0
+    assert os.path.getsize(os.path.join(out, "scene.obj")) > 0
+    assert os.path.exists(os.path.join(out, "render_0.png")) and os.path.exists(aff)
+    assert rendered.shape == (480, 640, 3) and (rendered < 255).any()
+    assert sphere.shape == (480, 640, 3) and (sphere < 250).any()
+    assert np.abs(back - p0.planes[top[0]]).max() <= 1e-3 * np.abs(p0.planes[top[0]]).max()
+    assert match_img.height == 2 * 480 + 45 and im1.size == (640, 480)
+    assert seg.shape == gt_seg.shape == (480, 640, 3)
+    return dict(walls=walls)
+
+
+def phase_goldens(rac, card) -> dict:
+    """"[goldens]": a fixture that the port's `save_goldens` writes from its
+    own probe on the CPU (configs/config.yaml's model at full width, 480x640,
+    phase 3's weights, float32, 200 proposals and 20 detections as the
+    fixture's meta config), then the port's `compare_goldens` CLI on the
+    card with the gather pooler (the CPU's route) and with the kernel."""
+    import torch
+
+    from articulation3d_tpu_torch import compare_goldens as cli
+    from articulation3d_tpu_torch.evaluation import goldens
+    from articulation3d_tpu_torch.models.planercnn import build_model
+
+    out = os.path.join(ROOT, ".chip_smoke", "goldens")
+    os.makedirs(out, exist_ok=True)
+    image = np.random.RandomState(11).randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    meta = {"topk": 200, "dets": 20, "score_thresh": 0.0}
+    cfg = cli._config_for({"image": image, **{f"meta_{k}": np.asarray(v)
+                                              for k, v in meta.items()}}, "torch")
+    sd = _serving_weights(_serving_config())
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cpu", state_dict=sd)
+    fixture = goldens.goldens_from_probe(model, image, meta)
+    t_cpu = time.perf_counter() - t0
+    del model
+    path = os.path.join(out, "port_480x640.npz")
+    goldens.save_goldens(path, fixture)
+    weights = os.path.join(out, "weights.pth")
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, weights)
+    reports, walls = {}, {}
+    for pooler in ("torch", "cuda"):
+        rac.multilevel_roi_align_cuda.launches = 0
+        t0 = time.perf_counter()
+        reports[pooler] = cli.main(["--goldens", path, "--weights", weights,
+                                    "--pooler", pooler])
+        walls[pooler] = time.perf_counter() - t0
+        reports[pooler]["k1"] = rac.multilevel_roi_align_cuda.launches
+    r, k = reports["torch"], reports["cuda"]
+    keys = ("det_match_frac", "det_box_max_err", "det_score_max_err", "masks_max_err",
+            "planes_max_err", "feat_p2_max_err", "proposal_top100_match_frac")
+    depth_rel = r["depth_max_err"] / max(float(np.abs(fixture["depth"]).max()), 1e-30)
+    _log(f"[goldens] fixture from the port's probe on the CPU ({len(fixture['det_boxes'])} "
+         f"detections, {len(fixture['proposal_boxes'])} proposals, {t_cpu:.2f} s) against "
+         f"the compare_goldens CLI on the card: gather pooler "
+         f"{ {key: round(r[key], 6) for key in keys} }, depth max err {depth_rel:.3e} of "
+         f"its largest value ({walls['torch']:.2f} s); kernel pooler "
+         f"{ {key: round(k[key], 6) for key in keys} } ({walls['cuda']:.2f} s, K1 "
+         f"{k['k1']}) ({card})")
+    assert r["k1"] == 0 and k["k1"] >= 2, (r["k1"], k["k1"])
+    assert r["proposal_top100_match_frac"] == 1.0 and r["det_match_frac"] >= 0.99, r
+    assert r["det_box_max_err"] < 0.01 and r["det_score_max_err"] < 1e-3, r
+    assert r["masks_max_err"] < 1e-2 and r["planes_max_err"] < 1e-2 and depth_rel < 1e-4, r
+    assert k["det_match_frac"] >= 0.9 and k["det_box_max_err"] < 2.0, k
+    return dict(reports=reports)
+
+
+def _export_extra_alone(rac, card) -> dict:
+    """"[export-extra]" on its own: phase 8's pipeline on the shifted clip."""
+    from articulation3d_tpu_torch.models.planercnn import build_model
+    from articulation3d_tpu_torch.video.pipeline import VideoPipeline
+    cfg = _serving_config()
+    pipe = VideoPipeline(cfg, build_model(cfg, state_dict=_serving_weights(cfg)),
+                         batch_size=8, conf_threshold=0.0)
+    return phase_export_extra(pipe, _shifted_clip(), card)
+
+
 PHASES = {"f1": lambda rac, card: phase_f1(rac), "refine-serve": phase_refine_serve,
-          "refine-train": phase_refine_train, "drpn": phase_drpn}
+          "refine-train": phase_refine_train, "drpn": phase_drpn,
+          "ddp-1": lambda rac, card: phase_ddp1(rac, card, {"steps_per_s": float("nan")}),
+          "ddp-2": lambda rac, card: phase_ranks(card, 2, "ddp-2"),
+          "ddp-cards": lambda rac, card: phase_ranks(card, _cards(), "ddp-cards"),
+          "export-extra": _export_extra_alone, "goldens": phase_goldens}
+
+
+def _cards() -> int:
+    """The number of cards "[ddp-cards]" spreads its ranks over (two or
+    more)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit("chip_smoke.py: [ddp-cards] needs more than one card")
+    return n
 
 
 def _only_phases() -> list:
@@ -2281,7 +2845,8 @@ def _only_phases() -> list:
     if not args:
         return []
     if len(args) != 2 or args[0] != "--only":
-        raise SystemExit("usage: chip_smoke.py [--only f1,refine-serve,refine-train,drpn]")
+        raise SystemExit("usage: chip_smoke.py [--only f1,refine-serve,refine-train,drpn,"
+                         "ddp-1,ddp-2,ddp-cards,export-extra,goldens]")
     names = args[1].split(",")
     bad = [n for n in names if n not in PHASES]
     if bad:
@@ -2290,4 +2855,6 @@ def _only_phases() -> list:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

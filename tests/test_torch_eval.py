@@ -417,8 +417,14 @@ def test_arti_evaluator_matches_jax(tmp_path, seed):
         assert {"bbox/AP", "segm/AP", "auroc", "bbox+axis - arti_rot"} <= set(res["port"])
     dumped = torch.load(out / "instances_predictions.pth", weights_only=False)
     assert len(dumped) == len(records) and "pred_depth" in dumped[0]
-    with pytest.raises(NotImplementedError):
-        p_eval.ArtiEvaluator(name, distributed=True)
+    # without a process group the distributed evaluator gathers one
+    # process's predictions: the same results (two ranks:
+    # tests/test_torch_parallel.py)
+    ev = p_eval.ArtiEvaluator(name, distributed=True, legacy_quirks=False)
+    ev.reset()
+    for rec, p in zip(records, copy.deepcopy(preds)):
+        ev.process([{"image_id": rec["image_id"], "file_name": rec["file_name"]}], [p])
+    _same(ev.evaluate(), res["port"])
 
 
 @pytest.mark.parametrize("with_depth", [False, True])

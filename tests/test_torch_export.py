@@ -9,7 +9,13 @@
     same files: `.mtl` byte-equal, `.obj` byte-equal except the `v` lines
     of the five swept copies, whose float32 rotation matrix may differ from
     XLA's by an ulp (held within 1e-6 of each vertex's largest coordinate),
-    and pixel-equal uv maps.
+    and pixel-equal uv maps;
+  * the rest of export (`primitives`, `transforms`,
+    `get_single_image_mesh_plane`): the same arrays as JAX's, bit for bit,
+    and `.ply` / `.obj` text byte-equal; the checks of JAX's own
+    `tests/test_export.py` (cylinder radius, the quaternion against
+    Rodrigues, the `transform_verts` definition, the global/local round
+    trip, the webview tilt) hold for the port.
 """
 
 import os
@@ -175,3 +181,182 @@ def test_save_obj_model_matches_jax(tmp_path, which, webvis):
     _compare_obj_dirs(str(a), str(b))
     text = (a / "arti_pred.obj").read_text()
     assert text.count("# mesh") >= 8
+
+
+# --------------------------------------------------------------------------- #
+# primitives, writers and world/local transforms (JAX tests/test_export.py)
+# --------------------------------------------------------------------------- #
+
+def _jax_export():
+    from articulation3d_tpu import export as jexp
+    from articulation3d_tpu.export import transforms as jtr
+    return jexp, jtr
+
+
+CAMERA = {"position": [0.3, -0.2, 1.5], "lookat": [0.1, 0.2, 1.0],
+          "vertical": [0.0, 1.0, 0.1]}
+
+
+@pytest.mark.parametrize("prim", ["cylinder", "arrow", "degenerate", "axis_mesh",
+                                  "camera_meshes", "cone_edges", "palette"])
+def test_primitives_match_jax(prim):
+    from articulation3d_tpu_torch.export import primitives as pp
+    from articulation3d_tpu.export import primitives as jp
+    if prim == "cylinder":
+        got, want = (m.create_cylinder_mesh(0.1, [0, 0, 0], [0.2, 0.3, 1], stacks=4,
+                                            slices=7) for m in (pp, jp))
+        d = np.linalg.norm(np.cross(got[0][:-2] - 0.0, [0.2, 0.3, 1]), axis=1) \
+            / np.linalg.norm([0.2, 0.3, 1])
+        np.testing.assert_allclose(d, 0.1, atol=1e-6)       # ring verts on the radius
+    elif prim == "arrow":
+        got, want = (m.create_arrow_mesh(0.05, [0, 0, 0], [1, 0.5, 0]) for m in (pp, jp))
+        assert got[1].max() < len(got[0])
+    elif prim == "degenerate":
+        got, want = (m.create_cylinder_mesh(0.1, [1, 1, 1], [1, 1, 1]) for m in (pp, jp))
+        assert got[0].shape == (0, 3)
+    elif prim == "axis_mesh":
+        a, b = (m.get_axis_mesh(0.02, [0, 0, 1], [0.5, 0.1, 2]) for m in (pp, jp))
+        got, want = (a.verts, a.faces), (b.verts, b.faces)
+    elif prim == "camera_meshes":
+        cams = [CAMERA, {"position": [0, 0, 0], "lookat": [0, 0, 1],
+                         "vertical": [0, 1, 0]}]
+        a, b = (m.get_camera_meshes(cams) for m in (pp, jp))
+        assert len(a) == len(b) == 2 and [c for _, c in a] == [c for _, c in b]
+        got = [x for m, _ in a for x in (m.verts, m.faces)]
+        want = [x for m, _ in b for x in (m.verts, m.faces)]
+    elif prim == "cone_edges":
+        got, want = (np.asarray(m.get_cone_edges(CAMERA["position"], CAMERA["lookat"],
+                                                 CAMERA["vertical"])) for m in (pp, jp))
+        assert got.shape == (8, 2, 3)
+    else:
+        got, want = pp.create_color_palette(), jp.create_color_palette()
+        assert len(got) == 40
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+        assert np.asarray(g).dtype == np.asarray(w).dtype
+
+
+@pytest.mark.parametrize("colors,faces", [(True, True), (False, True), (True, False)])
+def test_ply_and_obj_writers_are_byte_equal(tmp_path, colors, faces):
+    from articulation3d_tpu_torch.export import write_obj, write_ply
+    jexp, _ = _jax_export()
+    rs = np.random.RandomState(0)
+    verts = rs.randn(10, 3)
+    col = rs.randint(0, 256, (10, 3)) if colors else None
+    idx = np.array([[0, 1, 2], [3, 4, 5], [7, 8, 9]]) if faces else None
+    for name, fn, jfn in (("a.ply", write_ply, jexp.write_ply),
+                          ("a.obj", write_obj, jexp.write_obj)):
+        fn(verts, col, idx, str(tmp_path / ("port_" + name)))
+        jfn(verts, col, idx, str(tmp_path / ("jax_" + name)))
+        got = (tmp_path / ("port_" + name)).read_bytes()
+        assert got == (tmp_path / ("jax_" + name)).read_bytes()
+    assert (tmp_path / "port_a.ply").read_text().startswith("ply")
+    if faces:
+        assert "f 1 2 3" in (tmp_path / "port_a.obj").read_text()
+    write_obj(verts, None, idx, str(tmp_path / "m.obj"), mtl_filename="m.mtl")
+    jexp.write_obj(verts, None, idx, str(tmp_path / "jm.obj"), mtl_filename="m.mtl")
+    assert (tmp_path / "m.obj").read_bytes() == (tmp_path / "jm.obj").read_bytes()
+
+
+def _rodrigues(axis, angle):
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * (k @ k)
+
+
+def _quat(axis, angle):
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    return np.concatenate([[np.cos(angle / 2)], np.sin(angle / 2) * axis])
+
+
+def test_quaternions_match_jax_and_rodrigues():
+    from articulation3d_tpu_torch.export.transforms import quat_inverse, quat_to_rotmat
+    _, jtr = _jax_export()
+    rs = np.random.RandomState(0)
+    for _ in range(5):
+        axis, angle = rs.randn(3), rs.uniform(-np.pi, np.pi)
+        q = _quat(axis, angle) * rs.uniform(0.5, 2.0)      # not normalised
+        np.testing.assert_array_equal(quat_to_rotmat(q), jtr.quat_to_rotmat(q))
+        np.testing.assert_array_equal(quat_inverse(q), jtr.quat_inverse(q))
+        np.testing.assert_allclose(quat_to_rotmat(q), _rodrigues(axis, angle), atol=1e-6)
+
+
+def test_transform_meshes_round_trip_and_flip():
+    from articulation3d_tpu_torch.export import (TexturedMesh, transform_meshes,
+                                                 transform_verts)
+    jexp, jtr = _jax_export()
+    rs = np.random.RandomState(1)
+    cam = {"position": np.array([0.5, -1.0, 2.0]),
+           "rotation": _quat([0.2, 0.9, -0.1], 0.7)}
+    verts = rs.randn(7, 3).astype(np.float32)
+    out = transform_meshes([TexturedMesh(verts, np.array([[0, 1, 2]]))], cam)[0]
+    want = jexp.transform_meshes([jexp.TexturedMesh(verts, np.array([[0, 1, 2]]))], cam)[0]
+    np.testing.assert_array_equal(out.verts, want.verts)
+    np.testing.assert_array_equal(out.faces, want.faces)
+    # the definition: R @ (v * [1, -1, -1]) + t
+    expect = (_rodrigues([0.2, 0.9, -0.1], 0.7) @ (verts * [1, -1, -1]).T).T + cam["position"]
+    np.testing.assert_allclose(out.verts, expect, atol=1e-5)
+    ident = {"position": np.zeros(3), "rotation": [1.0, 0, 0, 0]}
+    np.testing.assert_allclose(transform_verts(verts, ident), verts * [1, -1, -1], atol=1e-6)
+    np.testing.assert_array_equal(transform_verts(verts, cam), jtr.transform_verts(verts, cam))
+
+
+def test_plane_params_global_local_match_jax():
+    from articulation3d_tpu_torch.export import (get_plane_params_in_global,
+                                                 get_plane_params_in_local)
+    jexp, _ = _jax_export()
+    rs = np.random.RandomState(3)
+    cam = {"position": np.array([0.3, 0.8, -0.4]),
+           "rotation": _quat([1.0, 0.2, 0.5], -1.1)}
+    planes = rs.randn(6, 3).astype(np.float32) * 2.0
+    world = get_plane_params_in_global(planes, cam)
+    np.testing.assert_array_equal(world, jexp.get_plane_params_in_global(planes, cam))
+    back = get_plane_params_in_local(world, cam)
+    np.testing.assert_array_equal(back, jexp.get_plane_params_in_local(world, cam))
+    np.testing.assert_allclose(back, planes, atol=1e-4)
+
+
+def test_rotate_mesh_for_webview_matches_jax():
+    from articulation3d_tpu_torch.export import TexturedMesh, rotate_mesh_for_webview
+    jexp, _ = _jax_export()
+    verts = np.concatenate([np.eye(3), np.random.RandomState(4).randn(5, 3)]).astype(np.float32)
+    out = rotate_mesh_for_webview([TexturedMesh(verts, np.array([[0, 1, 2]]))])[0]
+    want = jexp.rotate_mesh_for_webview([jexp.TexturedMesh(verts, np.array([[0, 1, 2]]))])[0]
+    np.testing.assert_array_equal(out.verts, want.verts)
+    np.testing.assert_allclose(out.verts[0], [1, 0, 0], atol=1e-6)   # a pure x rotation
+    np.testing.assert_allclose(np.linalg.norm(out.verts, axis=1),
+                               np.linalg.norm(verts, axis=1), atol=1e-5)
+    assert abs(out.verts[1][1] - 0.9816272) < 1e-5
+
+
+@pytest.mark.parametrize("segm", ["rle", "polygons"])
+def test_single_image_mesh_plane_matches_jax(segm):
+    from articulation3d_tpu.export import get_single_image_mesh_plane as jax_mesh_plane
+    from articulation3d_tpu_torch.export import get_single_image_mesh_plane
+    from articulation3d_tpu_torch.utils.rle import rle_encode
+    img = np.random.RandomState(5).randint(0, 255, (480, 640, 3), np.uint8)
+    masks = _masks()
+    planes = np.array([[0.0, 2.0, 0.0], [0.3, 3.0, 0.4], [-0.2, 1.5, 0.1]])
+    if segm == "rle":
+        segs = [rle_encode(np.asarray(m, np.uint8)) for m in masks]
+    else:
+        segs = [binary_mask_to_polygon(m) for m in masks]
+    want, want_uv = jax_mesh_plane(planes, segs, img)
+    got, got_uv = get_single_image_mesh_plane(planes, segs, img)
+    assert len(got) == len(want) == 3
+    ref, _ = get_single_image_mesh_arti(planes, np.stack(masks), img)
+    for a, b, c in zip(got, want, ref):
+        for f in ("verts", "faces", "verts_uvs", "uv_map"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            np.testing.assert_array_equal(getattr(a, f), getattr(c, f))
+    for a, b in zip(got_uv, want_uv):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_export_names_match_jax():
+    from articulation3d_tpu_torch import export as pexp
+    jexp, _ = _jax_export()
+    assert sorted(pexp.__all__) == sorted(jexp.__all__)
+    for name in pexp.__all__:
+        assert callable(getattr(pexp, name)) or isinstance(getattr(pexp, name), type)
