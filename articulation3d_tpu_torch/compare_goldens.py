@@ -15,8 +15,12 @@ line.  Fixtures carrying `meta_*` keys rebuild the small config they were
 made with; others get the full 480x640 inference config.  The model runs
 in float32 on the card unless `--device` names another device.  The
 pooler routes take the place of the JAX tool's: "torch" (the gather
-formulation, the default, as "xla" is there), "cuda" (the kernel, as
-"pallas") and "auto" (the kernel on the card).
+formulation, the default, as "xla" is there), "cuda" (the kernels, or
+their plain versions off the card, where the JAX tool has "pallas") and
+"auto" (the kernels on the card).  Unlike the Pallas kernel, which moves
+slivers to a coarser level, both routes pool every ROI from its
+detectron2 level, as the reference does: they compute one function and
+differ only in the order of float32 sums.
 """
 
 from __future__ import annotations

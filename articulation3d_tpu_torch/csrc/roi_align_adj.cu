@@ -9,14 +9,14 @@
 //     dF_level[b, y0 + y, x0 + x, c] += sum_p sum_q Ry[r, p, y] * Rx[r, q, x]
 //                                                   * g[r, p, q, c]
 //
-// for the tiles the ROI spans and only for the cells inside the real level
-// map.  The Pallas kernel accumulated the out-of-map cells into a padded
-// scratch and cropped them afterwards; dropping them is the same result.
-// Each block reads its ROI's record (level, y0, x0, nty, ntx) as K1 wrote
-// it and rebuilds Ry/Rx from the box through roi_align_prologue.cuh, the
-// same code K1 ran, so the weights are bit-identical and forward and
-// adjoint stay an exact linear map and transpose for every ROI (window-edge
-// snap included).  An invalid ROI (nty == 0) reads and writes nothing.
+// over the ny x nx cells the ROI's samples touch on its detectron2 level:
+// the gradient of the reference's ROIAlign with respect to the features
+// (torchvision's backward).  Each block reads its ROI's record (level, y0,
+// x0, ny, nx) as K1 wrote it and rebuilds Ry/Rx from the box through
+// roi_align_prologue.cuh, the same code K1 ran, so the weights are
+// bit-identical and forward and adjoint stay an exact linear map and
+// transpose for every ROI.  An invalid ROI (ny == 0) reads and writes
+// nothing.
 //
 // Bound on an H100 SXM: memory bytes.  g's rows of the valid ROIs read
 // once and each float32 cell of the level gradients written once, over
@@ -26,24 +26,21 @@
 //
 // Design:
 //   * grid (ROI, channel slice); the block stages its ROI's cotangent rows
-//     g[r, :, :, slice] in shared memory once, with 16-byte loads: all 256
-//     channels at P = 7 (50 KB), 64-channel slices at P = 14 (50 KB), so a
-//     cotangent value is read from device memory once (the first version
-//     re-read it from L1/L2 for every window cell, ~4 times per cell);
-//   * a thread owns 4 channels; the block's thread groups split the window
+//     g[r, :, :, slice] in dynamic shared memory once, with 16-byte loads:
+//     all 256 channels at P = 7 (50 KB), 64-channel slices at P = 14
+//     (50 KB), so a cotangent value is read from device memory once; the
+//     weight rows follow, packed at the ROI's own ny and nx, and the
+//     per-cell ranges of output rows and columns after them (the launch
+//     reserves room for the largest level's height plus width);
+//   * a thread owns 4 channels; the block's thread groups split the cell
 //     columns.  Per column x of the support, T[p] = sum_q Rx[q, x] g[p, q]
 //     in registers (P a template parameter), then per row y of the support
 //     sum_p Ry[p, y] T[p], added to dF[b, y0 + y, x0 + x, c..c+3] with one
-//     16-byte vector reduction (red.global.add.v4.f32, native on sm_90): a
-//     quarter of the first version's atomic instructions, and no old value
-//     sent back;
-//   * ROI windows overlap and ROIs run at once (the TPU ran its grid in
-//     sequence, roi_align_pallas.py:496-506), so the adds stay atomic and
-//     their order, hence the last bits of the sum, varies between runs.
-//
-// Predicted before the first chip run: 0.7-1.5 ms at the training box
-// pool (3-6x its bound); the atomics' read-modify-write of every touched
-// cell (about 0.8 GB of float4 atomics, in L2) is what stays.
+//     16-byte vector reduction (red.global.add.v4.f32, native on sm_90),
+//     and no old value sent back;
+//   * ROIs overlap and run at once (the TPU ran its grid in sequence,
+//     roi_align_pallas.py:496-506), so the adds stay atomic and their
+//     order, hence the last bits of the sum, varies between runs.
 
 #include <cuda_runtime.h>
 
@@ -72,22 +69,28 @@ __global__ void __launch_bounds__(kThreads)
 roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
                      const float* __restrict__ boxes, const int* __restrict__ record,
                      int n_per_image, const float* __restrict__ g) {
+  // staged g (P * P * cs_max / 4 float4), then Ry (P x ny), Rx (P x nx),
+  // and per cell row (column) the output rows p (columns q) that hold it
   extern __shared__ float4 sg4[];
-  __shared__ float sry[PMAX][kSpanY];
-  __shared__ float srx[PMAX][kSpanX];
   __shared__ int ylo[PMAX], yhi[PMAX], xlo[PMAX], xhi[PMAX];
-  __shared__ int plo[kSpanY], phi[kSpanY], qlo[kSpanX], qhi[kSpanX];
 
   const int P = EXACT ? PMAX : o.P;
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
   const int* rr = record + static_cast<size_t>(r) * kRecord;
   Record rec;
-  rec.level = rr[0]; rec.y0 = rr[1]; rec.x0 = rr[2]; rec.nty = rr[3]; rec.ntx = rr[4];
-  if (rec.nty == 0) return;
+  rec.level = rr[0]; rec.y0 = rr[1]; rec.x0 = rr[2]; rec.ny = rr[3]; rec.nx = rr[4];
+  if (rec.ny == 0) return;
   const int l = rec.level;
   const int H = o.h[l];
   const int W = o.w[l];
+  const int ny = rec.ny, nx = rec.nx;
+  float* sry = reinterpret_cast<float*>(sg4 + P * P * (cs_max / 4));
+  float* srx = sry + P * ny;
+  int* plo = reinterpret_cast<int*>(srx + P * nx);
+  int* phi = plo + ny;
+  int* qlo = phi + ny;
+  int* qhi = qlo + nx;
   const float* box = boxes + static_cast<size_t>(r) * 4;
 
   // stage this block's channel slice of g[r] (P*P rows of cs floats)
@@ -104,23 +107,20 @@ roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
   // weights, rebuilt as K1 built them
   const Axis ay = axis_params(box[1], box[3], o.scale[l], o);
   const Axis ax = axis_params(box[0], box[2], o.scale[l], o);
-  for (int i = tid; i < P * kSpanY; i += kThreads) sry[i / kSpanY][i % kSpanY] = 0.f;
-  for (int i = tid; i < P * kSpanX; i += kThreads) srx[i / kSpanX][i % kSpanX] = 0.f;
+  for (int i = tid; i < P * (ny + nx); i += kThreads) sry[i] = 0.f;
   __syncthreads();
   if (tid < P) {
-    build_row(&sry[tid][0], ay, tid, H, rec.y0, kSpanY,
-              min(rec.nty * kTileY, H - rec.y0), &ylo[tid], &yhi[tid]);
+    build_row(sry + tid * ny, ay, tid, H, rec.y0, ny, &ylo[tid], &yhi[tid]);
   } else if (tid < 2 * P) {
     const int q = tid - P;
-    build_row(&srx[q][0], ax, q, W, rec.x0, kSpanX,
-              min(rec.ntx * kTileX, W - rec.x0), &xlo[q], &xhi[q]);
+    build_row(srx + q * nx, ax, q, W, rec.x0, nx, &xlo[q], &xhi[q]);
   }
   __syncthreads();
-  // per window row (column): the first and last output row p (column q)
+  // per cell row (column): the first and last output row p (column q)
   // whose support holds it; lo > hi marks one that no support holds
-  for (int i = tid; i < kSpanY + kSpanX; i += kThreads) {
-    const bool is_y = i < kSpanY;
-    const int k = is_y ? i : i - kSpanY;
+  for (int i = tid; i < ny + nx; i += kThreads) {
+    const bool is_y = i < ny;
+    const int k = is_y ? i : i - ny;
     int lo = P, hi = -1;
     for (int p = 0; p < P; ++p) {
       const int a = is_y ? ylo[p] : xlo[p];
@@ -134,7 +134,7 @@ roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
     (is_y ? phi : qhi)[k] = hi;
   }
   __syncthreads();
-  int y_first = kSpanY, y_last = -1, x_first = kSpanX, x_last = -1;
+  int y_first = ny, y_last = -1, x_first = nx, x_last = -1;
   for (int p = 0; p < P; ++p) {
     if (ylo[p] <= yhi[p]) {
       y_first = min(y_first, ylo[p]);
@@ -147,7 +147,7 @@ roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
   }
 
   const int lanes = cs4;                       // <= kThreads by the wrapper
-  const int groups = kThreads / lanes;         // window-column groups
+  const int groups = kThreads / lanes;         // cell-column groups
   const int grp = tid / lanes;
   if (grp >= groups) return;
   const int lane = tid - grp * lanes;
@@ -162,7 +162,7 @@ roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
 #pragma unroll
     for (int p = 0; p < PMAX; ++p) t[p] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int q = q0; q <= q1; ++q) {
-      const float wx = srx[q][x];
+      const float wx = srx[q * nx + x];
       if (wx == 0.f) continue;
 #pragma unroll
       for (int p = 0; p < PMAX; ++p) {
@@ -180,7 +180,7 @@ roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
       for (int p = 0; p < PMAX; ++p) {
         if (!EXACT && p >= P) break;
         if (p < p0 || p > p1) continue;
-        const float wy = sry[p][y];
+        const float wy = sry[p * ny + y];
         acc.x += wy * t[p].x; acc.y += wy * t[p].y; acc.z += wy * t[p].z; acc.w += wy * t[p].w;
       }
       red_add4(dcol + y * row_stride, acc);
@@ -191,7 +191,11 @@ roi_align_adj_kernel(Grads gr, Opts o, int C, int cs_max,
 template <int PMAX, bool EXACT>
 int launch(int T, cudaStream_t s, const Grads& gr, const Opts& o, int C, int cs,
            const float* boxes, const int* record, int n, const float* g) {
-  const size_t smem = static_cast<size_t>(o.P) * o.P * cs * sizeof(float);
+  // the staged g, and room for the largest ROI's rows and cell ranges:
+  // ny <= H_l and nx <= W_l on its level
+  int span = 0;
+  for (int l = 0; l < 4; ++l) span = max(span, o.h[l] + o.w[l]);
+  const size_t smem = (static_cast<size_t>(o.P) * o.P * cs + (o.P + 2) * span) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(roi_align_adj_kernel<PMAX, EXACT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));

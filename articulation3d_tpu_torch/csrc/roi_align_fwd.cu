@@ -8,46 +8,45 @@
 //     out[r, p, q, c] = sum_y sum_x Ry[r, p, y] * Rx[r, q, x]
 //                                   * F_level[b, y0 + y, x0 + x, c]
 //
-// with the level, window origin, tile counts and separable weights of
-// roi_align_prologue.cuh (the device form of `ops/roi_align_cuda.py::
-// _prepare`), over the tiles the ROI spans and the cells inside the real
-// level map.  The Pallas kernel read those cells from a zero-padded copy;
-// here they are skipped, which is the same sum.  It also writes each ROI's
-// record (level, y0, x0, nty, ntx) as int32, for the adjoint (K2) and the
-// tests; an invalid ROI (nty = 0) writes zeros and reads no feature.
+// over the ny x nx cells the ROI's samples touch on its detectron2 level,
+// with the record and separable weights of roi_align_prologue.cuh (the
+// device form of `ops/roi_align_cuda.py::_roi_record`): the reference's
+// ROIAlign, the same linear map as `ops/roi_align.py::multilevel_roi_align`.
+// It also writes each ROI's record (level, y0, x0, ny, nx) as int32, for
+// the adjoint (K2) and the tests; an invalid ROI (ny = 0) writes zeros and
+// reads no feature.
 //
 // Bound on an H100 SXM: memory bytes.  The output, B*N*P*P*C*4 bytes, plus
 // the feature cells the ROIs read, over 3.35 TB/s: at the serving box pool
 // (8000 ROIs, 7x7, bf16 maps) 0.148 ms, at the training box pool (8192
-// ROIs, float32 maps) 0.205 ms.  Each cell costs about one multiply-add per
-// output row and column whose support holds it, far below the ~20 FLOP per
-// byte ridge of the fp32 CUDA cores.
+// ROIs, float32 maps) 0.205 ms (damped random-weight proposals).  Each
+// cell costs about one multiply-add per output row and column whose
+// support holds it, far below the ~20 FLOP per byte ridge of the fp32 CUDA
+// cores.
 //
 // Design:
 //   * the prologue is fused: every thread derives its ROI's record from
 //     the box in registers; 2P threads build the Ry/Rx rows and their
-//     supports straight into shared memory.  No per-ROI tensor but the
-//     20-byte record goes to device memory (the first version read Ry/Rx,
-//     8 KB per ROI, built by about 100 torch launches per call);
+//     supports straight into dynamic shared memory, packed at the ROI's
+//     own ny and nx (P * (ny + nx) floats; the launch reserves P times the
+//     largest level's height plus width, 17.9 KB at P = 16 on a 480x640
+//     pyramid).  No per-ROI tensor but the 20-byte record goes to device
+//     memory;
 //   * a thread owns 8 bf16 or 4 float32 consecutive channels, so every
 //     feature load is 16 bytes and a warp reads 512 contiguous bytes of a
 //     channels-last row; the threads of a block split the work items, an
 //     output column q and a block of at most 8 output rows p (two blocks
 //     of 7 at P = 14), which keeps the accumulators in 128 registers;
 //   * separable sums in registers, with P a template parameter (7, 14, or
-//     up to 16 at run time): per work item the thread sweeps the window
-//     rows y of the block's support once, top to bottom, forms
+//     up to 16 at run time): per work item the thread sweeps the cell rows
+//     y of the block's support once, top to bottom, forms
 //     H[q] = sum_x Rx[q, x] F[y, x] over the column's support and adds
 //     Ry[p, y] H[q] into the rows p whose weight at y is non-zero; each
 //     output is written once, in [p, q, c] order, with 16-byte stores.  A
-//     feature cell is loaded once per window row sweep and per column whose
+//     feature cell is loaded once per row sweep and per column whose
 //     support holds it (neighbouring bins share one or two cells);
 //   * float32 accumulation with float32 weights for bf16 features (the TPU
 //     rounded the weights to bf16 for its matrix unit).
-//
-// Predicted before the first chip run: the box pool at 2-3x its bound
-// (0.3-0.45 ms), the 14x14 pools at 1.5-2.5x (0.09-0.15 ms); the wrapper
-// adds only the output's allocation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,8 +111,7 @@ roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
   constexpr int V = Vec<T>::N;
   constexpr int kThreads = Shape<PMAX>::threads;
   constexpr int PB = PMAX <= 8 ? PMAX : (PMAX + 1) / 2;   // rows per work item
-  __shared__ float sry[PMAX][kSpanY];
-  __shared__ float srx[PMAX][kSpanX];
+  extern __shared__ float srow[];   // Ry (P x ny), then Rx (P x nx)
   __shared__ int ylo[PMAX], yhi[PMAX], xlo[PMAX], xhi[PMAX];
 
   const int P = EXACT ? PMAX : o.P;
@@ -125,10 +123,10 @@ roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
   const Record rec = roi_record(box, ok, o, &ay, &ax);
   if (tid == 0) {
     int* rr = record + static_cast<size_t>(r) * kRecord;
-    rr[0] = rec.level; rr[1] = rec.y0; rr[2] = rec.x0; rr[3] = rec.nty; rr[4] = rec.ntx;
+    rr[0] = rec.level; rr[1] = rec.y0; rr[2] = rec.x0; rr[3] = rec.ny; rr[4] = rec.nx;
   }
   float* o_roi = out + static_cast<size_t>(r) * P * P * C;
-  if (rec.nty == 0) {
+  if (rec.ny == 0) {
     float4* o4 = reinterpret_cast<float4*>(o_roi);
     for (int i = tid; i < P * P * C / 4; i += kThreads) o4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
@@ -136,16 +134,16 @@ roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
   const int l = rec.level;
   const int H = o.h[l];
   const int W = o.w[l];
-  for (int i = tid; i < P * kSpanY; i += kThreads) sry[i / kSpanY][i % kSpanY] = 0.f;
-  for (int i = tid; i < P * kSpanX; i += kThreads) srx[i / kSpanX][i % kSpanX] = 0.f;
+  const int ny = rec.ny, nx = rec.nx;
+  float* sry = srow;
+  float* srx = srow + P * ny;
+  for (int i = tid; i < P * (ny + nx); i += kThreads) srow[i] = 0.f;
   __syncthreads();
   if (tid < P) {
-    build_row(&sry[tid][0], ay, tid, H, rec.y0, kSpanY,
-              min(rec.nty * kTileY, H - rec.y0), &ylo[tid], &yhi[tid]);
+    build_row(sry + tid * ny, ay, tid, H, rec.y0, ny, &ylo[tid], &yhi[tid]);
   } else if (tid < 2 * P) {
     const int q = tid - P;
-    build_row(&srx[q][0], ax, q, W, rec.x0, kSpanX,
-              min(rec.ntx * kTileX, W - rec.x0), &xlo[q], &xhi[q]);
+    build_row(srx + q * nx, ax, q, W, rec.x0, nx, &xlo[q], &xhi[q]);
   }
   __syncthreads();
 
@@ -165,8 +163,8 @@ roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
     for (int item = g; item < P * npb; item += groups) {
       const int q = item % P;
       const int p0 = (item / P) * PB;
-      // the window rows any output row of the block reads
-      int y_first = kSpanY, y_last = -1;
+      // the cell rows any output row of the block reads
+      int y_first = ny, y_last = -1;
 #pragma unroll
       for (int j = 0; j < PB; ++j) {
         const int p = p0 + j;
@@ -183,14 +181,14 @@ roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
         for (int v = 0; v < V; ++v) acc[j][v] = 0.f;
       const int x0 = xlo[q], x1 = xhi[q];
       for (int y = y_first; y <= y_last; ++y) {
-        // H[q] = sum_x Rx[q, x] F[y, x], once per window row
+        // H[q] = sum_x Rx[q, x] F[y, x], once per cell row
         const T* row = f + y * row_stride + c;
         float h[V];
 #pragma unroll
         for (int v = 0; v < V; ++v) h[v] = 0.f;
 #pragma unroll (Shape<PMAX>::x_unroll)
         for (int x = x0; x <= x1; ++x) {
-          const float wx = srx[q][x];
+          const float wx = srx[q * nx + x];
           float fv[V];
           Vec<T>::load(row + static_cast<size_t>(x) * C, fv);
 #pragma unroll
@@ -201,7 +199,7 @@ roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
         for (int j = 0; j < PB; ++j) {
           const int p = p0 + j;
           if ((!EXACT || PB != PMAX) && p >= P) break;
-          const float wy = sry[p][y];
+          const float wy = sry[p * ny + y];
           if (wy == 0.f) continue;
 #pragma unroll
           for (int v = 0; v < V; ++v) acc[j][v] += wy * h[v];
@@ -223,22 +221,29 @@ roi_align_fwd_kernel(Levels lv, Opts o, int C, const float* __restrict__ boxes,
 }
 
 template <typename T, int PMAX, bool EXACT>
-void launch(int T_rois, cudaStream_t s, const Levels& lv, const Opts& o, int C,
-            const float* boxes, const bool* valid, int n, int* record, float* out) {
-  roi_align_fwd_kernel<T, PMAX, EXACT><<<dim3(T_rois), dim3(Shape<PMAX>::threads), 0, s>>>(
+int launch(int T_rois, cudaStream_t s, const Levels& lv, const Opts& o, int C,
+           const float* boxes, const bool* valid, int n, int* record, float* out) {
+  // room for the largest ROI's rows: ny <= H_l and nx <= W_l on its level
+  int span = 0;
+  for (int l = 0; l < 4; ++l) span = max(span, o.h[l] + o.w[l]);
+  const size_t smem = static_cast<size_t>(o.P) * span * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(roi_align_fwd_kernel<T, PMAX, EXACT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  roi_align_fwd_kernel<T, PMAX, EXACT><<<dim3(T_rois), dim3(Shape<PMAX>::threads), smem, s>>>(
       lv, o, C, boxes, valid, n, record, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-void dispatch(int T_rois, cudaStream_t s, const Levels& lv, const Opts& o, int C,
-              const float* boxes, const bool* valid, int n, int* record, float* out) {
-  if (o.P == 7) {
-    launch<T, 7, true>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
-  } else if (o.P == 14) {
-    launch<T, 14, true>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
-  } else {
-    launch<T, kMaxP, false>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
-  }
+int dispatch(int T_rois, cudaStream_t s, const Levels& lv, const Opts& o, int C,
+             const float* boxes, const bool* valid, int n, int* record, float* out) {
+  if (o.P == 7) return launch<T, 7, true>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
+  if (o.P == 14) return launch<T, 14, true>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
+  return launch<T, kMaxP, false>(T_rois, s, lv, o, C, boxes, valid, n, record, out);
 }
 
 }  // namespace
@@ -280,10 +285,6 @@ extern "C" int roi_align_fwd(const void* f2, const void* f3, const void* f4,
   const bool* vp = static_cast<const bool*>(valid);
   int* rp = static_cast<int*>(record);
   float* op = static_cast<float*>(out);
-  if (dtype == 0) {
-    dispatch<float>(T, s, lv, o, C, bp, vp, n_per_image, rp, op);
-  } else {
-    dispatch<__nv_bfloat16>(T, s, lv, o, C, bp, vp, n_per_image, rp, op);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return dispatch<float>(T, s, lv, o, C, bp, vp, n_per_image, rp, op);
+  return dispatch<__nv_bfloat16>(T, s, lv, o, C, bp, vp, n_per_image, rp, op);
 }

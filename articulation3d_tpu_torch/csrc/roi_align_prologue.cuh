@@ -2,19 +2,20 @@
 // roi_align_fwd.cu (K1) and roi_align_adj.cu (K2), so that both build
 // bit-identical weights and stay an exact linear map and its transpose.
 //
-// It is the device form of `ops/roi_align_cuda.py::_prepare` (the Pallas
-// prologue, articulation3d_tpu/ops/roi_align_pallas.py:120-171, 273-375):
-//   * detectron2's sqrt-area level (canonical size 224, level 4, eps 1e-8);
-//   * the window-overflow bump of `pallas_level_idx`;
+// It is the device form of `ops/roi_align_cuda.py::_roi_record` (and of
+// the integers of `_prepare`):
+//   * detectron2's sqrt-area level (canonical size 224, level 4, eps 1e-8),
+//     the level the reference pools every ROI from;
 //   * the sample start, bin size and adaptive sample count: ceil(bin), at
 //     least 1, uncapped as torchvision samples (Opts::adaptive_cap = 0) or
 //     at most Opts::adaptive_cap (the JAX package caps at 4).  Nothing here
 //     bounds the count: `sample`, `extent` and `build_row` loop to it;
-//   * the window origin y0/x0 (x floored to a multiple of 8, both capped at
-//     the padded extents), the tile counts nty/ntx (nty = 0: invalid ROI);
-//   * the separable weight rows Ry (P x 64) and Rx (P x 80): bilinear
-//     corners, zero outside the map, the defensive window-edge snap, 1/n,
-//     and the tiles and map cells the ROI does not span cut to zero.
+//   * the cells the ROI reads on its level, per axis the first cell and
+//     the count between the bilinear corners of the lowest and highest
+//     sample, clipped to the real map: the record (level, y0, x0, ny, nx),
+//     ny = 0 for an invalid ROI;
+//   * the separable weight rows Ry (P x ny) and Rx (P x nx) from (y0, x0):
+//     bilinear corners, zero outside the map, 1/n.
 //
 // The integers must equal what torch computes on the card, so every float
 // operation is rounded on its own, in torch's order (no contraction into
@@ -25,7 +26,9 @@
 //
 // The min and max of an ROI's samples are taken in closed form: the
 // rounded coordinates are monotone in (p, s), so the extremes are the
-// first and last sample (swapped for a negative bin).
+// first and last sample (swapped for a negative bin).  The corners of
+// every sample in between lie in the record's cells, so `build_row`
+// writes inside its row with no clamp.
 
 #pragma once
 
@@ -33,12 +36,8 @@
 
 namespace roi_prologue {
 
-constexpr int kTileY = 32;
-constexpr int kTileX = 40;
-constexpr int kSpanY = 2 * kTileY;
-constexpr int kSpanX = 2 * kTileX;
 constexpr int kMaxP = 16;
-constexpr int kRecord = 5;   // level, y0, x0, nty, ntx (int32 per ROI)
+constexpr int kRecord = 5;   // level, y0, x0, ny, nx (int32 per ROI)
 
 // What the kernels need to know of the options and the pyramid.
 struct Opts {
@@ -62,15 +61,10 @@ struct Axis {
 
 // The prologue's result for one ROI.
 struct Record {
-  int level, y0, x0, nty, ntx;
+  int level, y0, x0, ny, nx;
 };
 
 __device__ __forceinline__ float recip(float d) { return __fdiv_rn(1.0f, d); }
-
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-  long long q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
 
 __device__ __forceinline__ Axis axis_params(float lo, float hi, float scale,
                                             const Opts& o) {
@@ -115,71 +109,45 @@ __device__ __forceinline__ int base_level(const float* box, const Opts& o) {
   return static_cast<int>(lvl) - o.min_level;
 }
 
-// The level each ROI is pooled from: the base level plus the window bump.
-__device__ __forceinline__ int pooled_level(const float* box, const Opts& o) {
-  const int base = base_level(box, o);
-  const Axis ay = axis_params(box[1], box[3], o.scale[base], o);
-  const Axis ax = axis_params(box[0], box[2], o.scale[base], o);
-  float ymin, ymax, xmin, xmax;
-  extent(ay, o.P, &ymin, &ymax);
-  extent(ax, o.P, &xmin, &xmax);
-  const float need_y = __fsub_rn(__fadd_rn(floorf(ymax), 2.0f),
-                                 fmaxf(__fsub_rn(floorf(ymin), 1.0f), 0.0f));
-  const float x0_al =
-      __fmul_rn(floorf(__fmul_rn(fmaxf(__fsub_rn(floorf(xmin), 1.0f), 0.0f), 0.125f)), 8.0f);
-  const float need_x = __fsub_rn(__fadd_rn(floorf(xmax), 2.0f), x0_al);
-  const bool overflow = need_y > static_cast<float>(kSpanY) ||
-                        need_x > static_cast<float>(kSpanX);
-  if (!overflow) return base;
-  const float over =
-      fmaxf(__fmul_rn(__fsub_rn(ymax, ymin), recip(static_cast<float>(kSpanY - 4))),
-            __fmul_rn(__fsub_rn(xmax, xmin), recip(static_cast<float>(kSpanX - 11))));
-  const int b_req = static_cast<int>(ceilf(log2f(fmaxf(over, 1.0f))));
-  return min(base + max(b_req, 1), 3);
+// First cell and cell count between the bilinear corners of the lowest
+// and highest sample coordinate, clipped to [0, size) (`_cells`).
+__device__ __forceinline__ void cells(float lo, float hi, int size, int* first, int* count) {
+  const float last = static_cast<float>(size - 1);
+  const float f = floorf(fminf(fmaxf(lo, 0.0f), last));
+  const float e = fminf(__fadd_rn(floorf(fminf(fmaxf(hi, 0.0f), last)), 1.0f), last);
+  *first = static_cast<int>(f);
+  *count = static_cast<int>(e) - static_cast<int>(f) + 1;
 }
 
-// The record of one ROI, and its two axes at the pooled level.
+// The record of one ROI, and its two axes at its level.
 __device__ __forceinline__ Record roi_record(const float* box, bool valid, const Opts& o,
                                              Axis* ay_out, Axis* ax_out) {
   Record rec;
-  rec.level = pooled_level(box, o);
+  rec.level = base_level(box, o);
   const int l = rec.level;
   const Axis ay = axis_params(box[1], box[3], o.scale[l], o);
   const Axis ax = axis_params(box[0], box[2], o.scale[l], o);
   float ymin, ymax, xmin, xmax;
   extent(ay, o.P, &ymin, &ymax);
   extent(ax, o.P, &xmin, &xmax);
-  const long long hp = max(o.h[l], kSpanY);
-  const long long wp = (max(o.w[l], kSpanX) + 7) / 8 * 8;
-  long long y0 = max(static_cast<long long>(floorf(ymin)) - 1, 0LL);
-  long long x0 = max(static_cast<long long>(floorf(xmin)) - 1, 0LL);
-  x0 = floor_div(x0, 8) * 8;
-  y0 = min(y0, hp - kSpanY);
-  x0 = min(x0, wp - kSpanX);
-  const long long need_y = static_cast<long long>(floorf(ymax)) + 2 - y0;
-  const long long need_x = static_cast<long long>(floorf(xmax)) + 2 - x0;
-  const long long nty = min(max(floor_div(need_y + kTileY - 1, kTileY), 1LL), 2LL);
-  const long long ntx = min(max(floor_div(need_x + kTileX - 1, kTileX), 1LL), 2LL);
-  rec.y0 = static_cast<int>(y0);
-  rec.x0 = static_cast<int>(x0);
-  rec.nty = valid ? static_cast<int>(nty) : 0;
-  rec.ntx = static_cast<int>(ntx);
+  int ny;
+  cells(ymin, ymax, o.h[l], &rec.y0, &ny);
+  cells(xmin, xmax, o.w[l], &rec.x0, &rec.nx);
+  rec.ny = valid ? ny : 0;
   *ay_out = ay;
   *ax_out = ax;
   return rec;
 }
 
-// Row p of one axis's separable weights (`_separable_weights` followed by
-// the tile predicate): row[0, win) relative to the window origin, zeroed by
-// the caller; entries at or beyond `lim` (the spanned tiles, the real map)
-// are cut to zero.  Only the entries the row's samples touch are visited.
-// Returns the first and last non-zero entry (lo > hi when the row is all
-// zero).
+// Row p of one axis's separable weights (`_separable_weights`): row[0, n)
+// from the ROI's first cell `origin`, zeroed by the caller (n: the
+// record's cell count).  Only the entries the row's samples touch are
+// visited.  Returns the first and last non-zero entry (lo > hi when the
+// row is all zero).
 __device__ __forceinline__ void build_row(float* row, const Axis& ax, int p, int size,
-                                          int origin, int win, int lim, int* lo_out,
-                                          int* hi_out) {
+                                          int origin, int n, int* lo_out, int* hi_out) {
   const float hf = static_cast<float>(size);
-  int first = win, last = -1;
+  int first = n, last = -1;
   for (int s = 0; s < ax.n; ++s) {
     const float c = sample(ax, p, s);
     const bool oor = c < -1.0f || c > hf;
@@ -190,17 +158,17 @@ __device__ __forceinline__ void build_row(float* row, const Axis& ax, int p, int
     if (yi >= size - 1) y = static_cast<float>(y_low);
     const float ly = __fsub_rn(y, static_cast<float>(y_low));
     const float hy = __fsub_rn(1.0f, ly);
-    const int rl = min(max(y_low - origin, 0), win - 1);
-    const int rh = min(max(y_high - origin, 0), win - 1);
+    const int rl = y_low - origin;
+    const int rh = y_high - origin;
     row[rl] = __fadd_rn(row[rl], oor ? 0.0f : hy);
     row[rh] = __fadd_rn(row[rh], oor ? 0.0f : ly);
     first = min(first, rl);
     last = max(last, rh);
   }
-  const float n = static_cast<float>(max(ax.n, 1));
-  int lo = win, hi = -1;
+  const float cnt = static_cast<float>(max(ax.n, 1));
+  int lo = n, hi = -1;
   for (int k = first; k <= last; ++k) {
-    const float v = k < lim ? __fdiv_rn(row[k], n) : 0.0f;
+    const float v = __fdiv_rn(row[k], cnt);
     row[k] = v;
     if (v != 0.0f) {
       lo = min(lo, k);

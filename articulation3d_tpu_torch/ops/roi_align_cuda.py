@@ -1,23 +1,23 @@
 """Multilevel ROIAlign forward and its adjoint as hand-written CUDA kernels
 for Hopper, and the training pooler built from the two.
 
-Counterpart of `articulation3d_tpu/ops/roi_align_pallas.py`.  It holds:
+Counterpart of `articulation3d_tpu/ops/roi_align_pallas.py`, computing what
+the reference computes: every ROI is pooled from the level detectron2
+assigns it (`assign_boxes_to_levels`), as `ops/roi_align.py::
+multilevel_roi_align` does.  It holds:
 
-  * the torch prologue (`pallas_level_idx`, `_separable_weights`,
-    `_prepare`), which reproduces the Pallas prologue in float32: the
-    detectron2 sqrt-area level plus the window-overflow bump, the window
-    origin (y0, x0) with x floored to a multiple of 8 and both capped
-    against the padded level extents, the tile counts nty/ntx, and the
-    per-ROI separable weights Ry (P, 64) and Rx (P, 80) that fold in V1/V2
-    offsets, the adaptive sample count, bilinear corners, zeros outside the
-    map, the defensive edge clamp and 1/n averaging.  It feeds the plain
-    versions;
-  * `_roi_record`, the same per-ROI integers as the kernels' own prologue
-    (`csrc/roi_align_prologue.cuh`) computes them, for the tests;
+  * the torch prologue (`_prepare`), which folds the sampling of each ROI
+    into separable weights: V1/V2 offsets, the adaptive sample count,
+    bilinear corners, zeros outside the map and 1/n averaging give Ry
+    (P, ny) and Rx (P, nx) over the ny x nx cells the ROI's samples touch
+    on its level, from (y0, x0).  It feeds the plain versions;
+  * `_roi_record`, the per-ROI integers (level, y0, x0, ny, nx) as the
+    kernels' own prologue (`csrc/roi_align_prologue.cuh`) computes them,
+    for the tests;
   * K1, the forward: the wrapper `multilevel_roi_align_cuda`, which
     launches `csrc/roi_align_fwd.cu` (prologue fused in: boxes in, pooled
-    features and the int32 record (level, y0, x0, nty, ntx) out) for CUDA
-    tensors, and its plain version `multilevel_roi_align_separable`;
+    features and the int32 record out) for CUDA tensors, and its plain
+    version `multilevel_roi_align_separable`;
   * K2, the adjoint with respect to the features: the wrapper
     `multilevel_roi_align_adjoint_cuda`, which launches
     `csrc/roi_align_adj.cu` from the boxes and K1's record, and its plain
@@ -32,17 +32,8 @@ Each wrapper takes its plain version for CPU tensors only; the tests and
 Every function takes `adaptive_cap`: with sampling ratio 0 an ROI takes
 ceil(bin) samples per bin and axis, uncapped as torchvision does (None,
 the default), or at most `adaptive_cap` (the JAX package's Pallas prologue
-caps at 4, so its parity tests pass 4).  More samples move an ROI's first
-and last sample, hence possibly its window origin and level bump; the
-kernels take the cap as a run-time option (0: uncapped).
-
-The 64x80 window and the 8-aligned x origin are kept in the prologue though
-the CUDA kernels do no DMA: they decide which level and which weights an
-ROI beyond the window contract gets (roi_align_pallas.py docstring), so the
-port pools exactly what the Pallas kernel pooled.  The TPU's launch
-chunking, ROI groups and padded copies of p3-p5 do not carry over: the
-kernels read the unpadded maps and skip cells at or beyond the real level
-extent, where the padded Pallas window holds zeros.
+caps at 4, so its parity tests pass 4).  The kernels take the cap as a
+run-time option (0: uncapped).
 
 Layout: features are channels-last (B, H_l, W_l, C), as in the JAX package.
 The output is (B, N, P, P, C) float32 in [row, col, C] order.
@@ -63,13 +54,10 @@ import torch
 
 from .roi_align import _sample_coords, assign_boxes_to_levels, multilevel_roi_align
 
-TILE_Y = 32   # window rows per tile
-TILE_X = 40   # window cols per tile
-N_TILES = 2   # tiles per axis -> 64 x 80 cell window
-SPAN_Y = TILE_Y * N_TILES
-SPAN_X = TILE_X * N_TILES
 MAX_P = 16    # output sizes the kernels' shared-memory arrays hold
-RECORD = ("levels", "y0", "x0", "nty", "ntx")   # the (T, 5) record's columns
+RECORD = ("levels", "y0", "x0", "ny", "nx")   # the (T, 5) record's columns
+# cells per chunk of the plain versions (times C float32 values)
+_CHUNK_CELLS = 1 << 16
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
@@ -79,13 +67,23 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 
 
-def _separable_weights(coord, mask, n_s, size, origin, win_n):
-    """Fold sampling, bilinear corners and averaging into (N, P, win_n)
-    weights relative to the window origin.
+def _cells(lo: torch.Tensor, hi: torch.Tensor, size: torch.Tensor):
+    """First cell and cell count (int64) between the bilinear corners of an
+    axis's lowest and highest sample coordinate, clipped to [0, size)."""
+    last = (size - 1).to(torch.float32)
+    first = torch.floor(torch.minimum(lo.clamp(min=0.0), last))
+    end = torch.minimum(torch.floor(torch.minimum(hi.clamp(min=0.0), last)) + 1.0, last)
+    return first.to(torch.int64), (end - first).to(torch.int64) + 1
 
-    coord (N, P, S) absolute sample coordinates on the pooled level; mask
+
+def _separable_weights(coord, mask, n_s, size, origin, span):
+    """Fold sampling, bilinear corners and averaging into (N, P, span)
+    weights relative to `origin`.
+
+    coord (N, P, S) absolute sample coordinates on the ROI's level; mask
     (N, P, S) adaptive-sample mask; n_s (N,) sample counts; size (N,) real
-    level extent; origin (N,) window origin.
+    level extent; origin (N,) the ROI's first cell (`_cells`), so every
+    corner of a sample lands in [0, span).
     """
     h = size[:, None, None].to(torch.float32)
     hi = size[:, None, None]
@@ -99,48 +97,15 @@ def _separable_weights(coord, mask, n_s, size, origin, win_n):
     zero = torch.zeros_like(ly)
     w_lo = torch.where(oor, zero, hy) * mask
     w_hi = torch.where(oor, zero, ly) * mask
-
-    # defensive clamp for ROIs that overflow the window even at the top
-    # level: tail samples snap to the window edge instead of being dropped
-    rel_lo = (y_low - origin[:, None, None]).clamp(0, win_n - 1)
-    rel_hi = (y_high - origin[:, None, None]).clamp(0, win_n - 1)
-    win_ids = torch.arange(win_n, dtype=torch.int64, device=coord.device)
-    one_lo = (rel_lo[..., None] == win_ids).to(torch.float32)
-    one_hi = (rel_hi[..., None] == win_ids).to(torch.float32)
-    w = (one_lo * w_lo[..., None] + one_hi * w_hi[..., None]).sum(dim=2)
+    # samples beyond an ROI's own count carry no weight and may lie past
+    # its last cell: park them on cell 0
+    used = mask > 0
+    rel_lo = torch.where(used, y_low - origin[:, None, None], 0)
+    rel_hi = torch.where(used, y_high - origin[:, None, None], 0)
+    w = torch.zeros((*coord.shape[:2], span), dtype=torch.float32, device=coord.device)
+    w.scatter_add_(2, rel_lo, w_lo)
+    w.scatter_add_(2, rel_hi, w_hi)
     return w / n_s.clamp(min=1)[:, None, None].to(torch.float32)
-
-
-def pallas_level_idx(flat_boxes: torch.Tensor, *, n_levels: int,
-                     strides: Sequence[int], output_size: int,
-                     sampling_ratio: int, aligned: bool,
-                     min_level: int = 2,
-                     adaptive_cap: Optional[int] = None) -> torch.Tensor:
-    """The 0-based level each ROI is pooled from: detectron2's sqrt-area
-    level, moved to a coarser level when the sampled extent overflows the
-    64x80-cell window (roi_align_pallas.py:120-171)."""
-    dev = flat_boxes.device
-    levels = assign_boxes_to_levels(flat_boxes, min_level=min_level,
-                                    max_level=min_level + n_levels - 1) - min_level
-    scale_table = torch.tensor([1.0 / s for s in strides], dtype=torch.float32,
-                               device=dev)
-    ys0, xs0, ym0, xm0 = _sample_coords(flat_boxes, scale_table[levels],
-                                        output_size, sampling_ratio, aligned,
-                                        adaptive_cap)
-    big = torch.tensor(1e9, dtype=torch.float32, device=dev)
-    y_min0 = torch.where(ym0 > 0, ys0, big).amin(dim=(1, 2))
-    y_max0 = torch.where(ym0 > 0, ys0, -big).amax(dim=(1, 2))
-    x_min0 = torch.where(xm0 > 0, xs0, big).amin(dim=(1, 2))
-    x_max0 = torch.where(xm0 > 0, xs0, -big).amax(dim=(1, 2))
-    need_y0 = torch.floor(y_max0) + 2 - (torch.floor(y_min0) - 1).clamp(min=0.0)
-    x0_al = torch.floor((torch.floor(x_min0) - 1).clamp(min=0.0) / 8) * 8
-    need_x0 = torch.floor(x_max0) + 2 - x0_al
-    overflow = (need_y0 > SPAN_Y) | (need_x0 > SPAN_X)
-    over = torch.maximum((y_max0 - y_min0) / float(SPAN_Y - 4),
-                         (x_max0 - x_min0) / float(SPAN_X - 11))
-    b_req = torch.ceil(torch.log2(over.clamp(min=1.0))).to(torch.int64)
-    bump = torch.where(overflow, b_req.clamp(min=1), torch.zeros_like(b_req))
-    return (levels + bump).clamp(max=n_levels - 1)
 
 
 def _prepare(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
@@ -148,36 +113,27 @@ def _prepare(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
              aligned: bool, min_level: int = 2,
              valid: Optional[torch.Tensor] = None,
              adaptive_cap: Optional[int] = None) -> dict:
-    """Per-ROI prologue shared by the kernel and its plain version
-    (roi_align_pallas.py:273-375).
+    """Per-ROI prologue of the plain versions (the counterpart of the
+    Pallas prologue, roi_align_pallas.py:273-375), at detectron2's level.
 
     level_shapes: per level (B, H_l, W_l, C); boxes (B, N, 4).  Returns
-    levels, batch_ids, y0, x0, nty, ntx as (T,) int32 (T = B*N), ry
-    (T, P, 64) and rx (T, P, 80) float32, and the padded extents hp, wp.
-    Invalid ROIs get nty = 0.
+    levels, batch_ids, y0, x0, ny, nx as (T,) int32 (T = B*N; the record's
+    integers, ny = 0 for an invalid ROI) and the weights ry (T, P, NY) and
+    rx (T, P, NX) float32 from (y0, x0), NY and NX the largest ny and nx
+    (zero beyond an ROI's own).
     """
     bsz, n = boxes.shape[:2]
     p = output_size
     dev = boxes.device
     flat_boxes = boxes.reshape(bsz * n, 4).to(torch.float32)
     total = bsz * n
-    levels = pallas_level_idx(flat_boxes, n_levels=len(level_shapes),
-                              strides=strides, output_size=p,
-                              sampling_ratio=sampling_ratio, aligned=aligned,
-                              min_level=min_level, adaptive_cap=adaptive_cap)
-    hs = [int(s[1]) for s in level_shapes]
-    ws = [int(s[2]) for s in level_shapes]
-    hp = [max(h, SPAN_Y) for h in hs]
-    # widths round up to a multiple of 8 so the 8-aligned x-origin cap
-    # reaches the right edge exactly
-    wp = [(max(w, SPAN_X) + 7) // 8 * 8 for w in ws]
+    levels = assign_boxes_to_levels(flat_boxes, min_level=min_level,
+                                    max_level=min_level + len(level_shapes) - 1) - min_level
     as_t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
-    heights = as_t(hs)[levels]
-    widths = as_t(ws)[levels]
+    heights = as_t([int(s[1]) for s in level_shapes])[levels]
+    widths = as_t([int(s[2]) for s in level_shapes])[levels]
     scales = torch.tensor([1.0 / s for s in strides], dtype=torch.float32,
                           device=dev)[levels]
-    y0_cap = as_t([h - SPAN_Y for h in hp])[levels]
-    x0_cap = as_t([w - SPAN_X for w in wp])[levels]
 
     ys, xs, y_mask, x_mask = _sample_coords(flat_boxes, scales, p,
                                             sampling_ratio, aligned, adaptive_cap)
@@ -189,31 +145,20 @@ def _prepare(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
         n_sw = x_mask[:, 0, :].sum(dim=1).to(torch.int64)
 
     big = torch.tensor(1e9, dtype=torch.float32, device=dev)
-    y_min = torch.where(y_mask > 0, ys, big).amin(dim=(1, 2))
-    y_max = torch.where(y_mask > 0, ys, -big).amax(dim=(1, 2))
-    x_min = torch.where(x_mask > 0, xs, big).amin(dim=(1, 2))
-    x_max = torch.where(x_mask > 0, xs, -big).amax(dim=(1, 2))
-
-    y0 = (torch.floor(y_min).to(torch.int64) - 1).clamp(min=0)
-    x0 = (torch.floor(x_min).to(torch.int64) - 1).clamp(min=0)
-    x0 = torch.div(x0, 8, rounding_mode="floor") * 8
-    y0 = torch.minimum(y0, y0_cap)
-    x0 = torch.minimum(x0, x0_cap)
-
-    need_y = torch.floor(y_max).to(torch.int64) + 2 - y0
-    need_x = torch.floor(x_max).to(torch.int64) + 2 - x0
-    nty = torch.div(need_y + TILE_Y - 1, TILE_Y, rounding_mode="floor").clamp(1, N_TILES)
-    ntx = torch.div(need_x + TILE_X - 1, TILE_X, rounding_mode="floor").clamp(1, N_TILES)
+    y0, ny = _cells(torch.where(y_mask > 0, ys, big).amin(dim=(1, 2)),
+                    torch.where(y_mask > 0, ys, -big).amax(dim=(1, 2)), heights)
+    x0, nx = _cells(torch.where(x_mask > 0, xs, big).amin(dim=(1, 2)),
+                    torch.where(x_mask > 0, xs, -big).amax(dim=(1, 2)), widths)
+    span_y = int(ny.max()) if total else 1
+    span_x = int(nx.max()) if total else 1
+    ry = _separable_weights(ys, y_mask, n_sh, heights, y0, span_y)
+    rx = _separable_weights(xs, x_mask, n_sw, widths, x0, span_x)
     if valid is not None:
-        nty = torch.where(valid.reshape(total), nty, torch.zeros_like(nty))
-
-    ry = _separable_weights(ys, y_mask, n_sh, heights, y0, SPAN_Y)
-    rx = _separable_weights(xs, x_mask, n_sw, widths, x0, SPAN_X)
+        ny = torch.where(valid.reshape(total), ny, torch.zeros_like(ny))
     batch_ids = torch.arange(bsz, dtype=torch.int64, device=dev).repeat_interleave(n)
     i32 = lambda t: t.to(torch.int32).contiguous()
-    return dict(levels=i32(levels), batch_ids=i32(batch_ids), y0=i32(y0),
-                x0=i32(x0), nty=i32(nty), ntx=i32(ntx), ry=ry.contiguous(),
-                rx=rx.contiguous(), hp=hp, wp=wp)
+    return dict(levels=i32(levels), batch_ids=i32(batch_ids), y0=i32(y0), x0=i32(x0),
+                ny=i32(ny), nx=i32(nx), ry=ry.contiguous(), rx=rx.contiguous())
 
 
 def multilevel_roi_align_separable(features: Sequence[torch.Tensor],
@@ -222,107 +167,110 @@ def multilevel_roi_align_separable(features: Sequence[torch.Tensor],
                                    sampling_ratio: int, aligned: bool,
                                    min_level: int = 2,
                                    valid: Optional[torch.Tensor] = None,
-                                   chunk: int = 256,
                                    adaptive_cap: Optional[int] = None) -> torch.Tensor:
-    """The plain torch version of the kernel (port of the CPU emulation in
-    `tests/test_pallas_roi.py`), chunked over ROIs.
+    """The plain torch version of K1.
 
-    Per ROI: out[p, q, c] = sum_y sum_x Ry[p, y] Rx[q, x] win[y, x, c] over
-    the 64x80 window at (y0, x0) of its level, with tiles beyond nty/ntx
-    dropped and cells beyond the real level extent read as zero.  Weights
-    stay float32 for bf16 features; the sum is float32.
+    Per ROI: out[p, q, c] = sum_y sum_x Ry[p, y] Rx[q, x] F[y0 + y, x0 + x, c]
+    over the ny x nx cells at (y0, x0) of its detectron2 level; invalid
+    ROIs give zeros.  The same linear map as the gather
+    `ops/roi_align.py::multilevel_roi_align`, summed in another order.
+    Weights stay float32 for bf16 features; the sum is float32.
     """
     bsz, n = boxes.shape[:2]
     pr = _prepare([f.shape for f in features], boxes, strides=strides,
                   output_size=output_size, sampling_ratio=sampling_ratio,
                   aligned=aligned, min_level=min_level, valid=valid,
                   adaptive_cap=adaptive_cap)
-    out = _separable_forward(features, pr, output_size, chunk)
+    out = _separable_forward(features, pr, output_size)
     return out.reshape(bsz, n, output_size, output_size, -1)
 
 
-def _separable_forward(features: Sequence[torch.Tensor], pr: dict, p: int,
-                       chunk: int = 256) -> torch.Tensor:
+def _roi_chunks(pr: dict, lvl: int, p: int):
+    """The valid ROIs of one level in chunks of like-sized cell blocks, as
+    (rois, NY, NX): NY x NX holds every chunk ROI's ny x nx, and a chunk's
+    k * max(NY, P) * max(NX, P) cells (its blocks, and the products with
+    one axis contracted) stay within `_CHUNK_CELLS`, unless one ROI alone
+    exceeds it."""
+    ny, nx = pr["ny"].long(), pr["nx"].long()
+    sel = torch.nonzero((pr["levels"] == lvl) & (ny > 0)).flatten()
+    if not sel.numel():
+        return
+    sel = sel[torch.argsort(ny[sel] * nx[sel], stable=True)]
+    sizes = torch.stack([ny[sel], nx[sel]], 1).tolist()
+    lo = 0
+    while lo < len(sizes):
+        hi, my, mx = lo, 1, 1
+        while hi < len(sizes):
+            my2, mx2 = max(my, sizes[hi][0]), max(mx, sizes[hi][1])
+            if hi > lo and (hi + 1 - lo) * max(my2, p) * max(mx2, p) > _CHUNK_CELLS:
+                break
+            my, mx, hi = my2, mx2, hi + 1
+        yield sel[lo:hi], my, mx
+        lo = hi
+
+
+def _cell_index(pr: dict, r: torch.Tensor, my: int, mx: int, shape) -> torch.Tensor:
+    """Flat row index (k, my, mx) of the ROIs' cells in a (B, H, W, C)
+    level; cells beyond an ROI's ny x nx point at row B*H*W."""
+    bsz, h, w = (int(v) for v in shape[:3])
+    dev = r.device
+    ky = torch.arange(my, device=dev)
+    kx = torch.arange(mx, device=dev)
+    y0, x0 = pr["y0"].long()[r], pr["x0"].long()[r]
+    rows = pr["batch_ids"].long()[r] * h + y0
+    idx = (rows[:, None, None] + ky[:, None]) * w + x0[:, None, None] + kx
+    inside = ((ky < pr["ny"].long()[r, None])[:, :, None]
+              & (kx < pr["nx"].long()[r, None])[:, None, :])
+    return torch.where(inside, idx, bsz * h * w)
+
+
+def _separable_forward(features: Sequence[torch.Tensor], pr: dict, p: int) -> torch.Tensor:
     """The plain forward from a `_prepare` result: (T, P, P, C) float32."""
     c = features[0].shape[-1]
     dev = pr["ry"].device
-    ry, rx = _predicated_weights(pr)
-    levels = pr["levels"].long()
-    bids, y0, x0 = pr["batch_ids"].long(), pr["y0"].long(), pr["x0"].long()
-    out = torch.zeros((levels.numel(), p, p, c), dtype=torch.float32, device=dev)
-    wy = torch.arange(SPAN_Y, device=dev)
-    wx = torch.arange(SPAN_X, device=dev)
+    out = torch.zeros((pr["levels"].numel(), p, p, c), dtype=torch.float32, device=dev)
     for lvl, f in enumerate(features):
-        padded = torch.nn.functional.pad(
-            f, (0, 0, 0, pr["wp"][lvl] - f.shape[2], 0, pr["hp"][lvl] - f.shape[1]))
-        sel = torch.nonzero((levels == lvl) & (pr["nty"] > 0)).flatten()
-        for lo in range(0, sel.numel(), chunk):
-            r = sel[lo:lo + chunk]
-            rows = (y0[r, None] + wy)[:, :, None]
-            cols = (x0[r, None] + wx)[:, None, :]
-            win = padded[bids[r, None, None], rows, cols].to(torch.float32)
-            out[r] = torch.einsum("kpy,kyxc,kqx->kpqc", ry[r], win, rx[r])
+        flat = torch.cat([f.reshape(-1, c), f.new_zeros((1, c))])
+        for r, my, mx in _roi_chunks(pr, lvl, p):
+            cells = flat[_cell_index(pr, r, my, mx, f.shape)].to(torch.float32)
+            out[r] = torch.einsum("kpy,kyxc,kqx->kpqc", pr["ry"][r, :, :my], cells,
+                                  pr["rx"][r, :, :mx])
     return out
 
 
 def multilevel_roi_align_adjoint_separable(g: torch.Tensor,
                                            feat_shapes: Sequence[Sequence[int]],
-                                           pr: dict,
-                                           chunk: int = 128) -> List[torch.Tensor]:
-    """The plain torch version of K2 (port of the CPU emulation
-    `tests/test_roi_train_pool.py::_emulate_pallas_adjoint`).
+                                           pr: dict) -> List[torch.Tensor]:
+    """The plain torch version of K2: the gradient of the plain forward
+    with respect to the features.
 
     g: (T, P, P, C) or (B, N, P, P, C) pooled cotangent; feat_shapes: per
     level (B, H_l, W_l, C); pr: the `_prepare` result of the forward.  Per
-    ROI the window cotangent dwin[y, x, c] = sum_p sum_q Ry[p, y] Rx[q, x]
-    g[p, q, c] (tiles beyond nty/ntx dropped, invalid ROIs skipped) is added
-    into the zero-padded level map at (y0, x0); each map is cropped to its
-    real extent (roi_align_pallas.py:727-731).  Returns float32 (B, H_l,
-    W_l, C) gradients.
+    valid ROI the cotangent of its cells, dwin[y, x, c] = sum_p sum_q
+    Ry[p, y] Rx[q, x] g[p, q, c], is added into its level at (y0, x0).
+    Returns float32 (B, H_l, W_l, C) gradients.
     """
     p = g.shape[-2]
     c = g.shape[-1]
     gf = g.reshape(-1, p, p, c).to(torch.float32)
-    dev = gf.device
-    ry, rx = _predicated_weights(pr)
-    levels = pr["levels"].long()
-    bids, y0, x0 = pr["batch_ids"].long(), pr["y0"].long(), pr["x0"].long()
-    wy = torch.arange(SPAN_Y, device=dev)
-    wx = torch.arange(SPAN_X, device=dev)
     grads = []
     for lvl, shape in enumerate(feat_shapes):
         bsz, h, w = (int(v) for v in shape[:3])
-        hp, wp = pr["hp"][lvl], pr["wp"][lvl]
-        acc = torch.zeros((bsz * hp * wp, c), dtype=torch.float32, device=dev)
-        sel = torch.nonzero((levels == lvl) & (pr["nty"] > 0)).flatten()
-        for lo in range(0, sel.numel(), chunk):
-            r = sel[lo:lo + chunk]
+        acc = torch.zeros((bsz * h * w + 1, c), dtype=torch.float32, device=gf.device)
+        for r, my, mx in _roi_chunks(pr, lvl, p):
             # transpose of the forward's products, Rx first as in the kernel
-            t = torch.einsum("kpqc,kqx->kpxc", gf[r], rx[r])
-            dwin = torch.einsum("kpy,kpxc->kyxc", ry[r], t)
-            cell = ((bids[r, None, None] * hp + y0[r, None, None] + wy[:, None]) * wp
-                    + x0[r, None, None] + wx)
+            t = torch.einsum("kpqc,kqx->kpxc", gf[r], pr["rx"][r, :, :mx])
+            dwin = torch.einsum("kpy,kpxc->kyxc", pr["ry"][r, :, :my], t)
             # index_add_ sums in index order on the CPU (index_put_'s
             # accumulate may not), so the plain version is deterministic there
-            acc.index_add_(0, cell.reshape(-1), dwin.reshape(-1, c))
-        grads.append(acc.reshape(bsz, hp, wp, c)[:, :h, :w].contiguous())
+            acc.index_add_(0, _cell_index(pr, r, my, mx, shape).reshape(-1),
+                           dwin.reshape(-1, c))
+        grads.append(acc[:-1].reshape(bsz, h, w, c))
     return grads
 
 
-def _predicated_weights(pr: dict):
-    """Ry/Rx with the tiles an ROI does not span zeroed (the Pallas kernel
-    skips those tiles); invalid ROIs (nty = 0) get all-zero Ry."""
-    ry, rx = pr["ry"], pr["rx"]
-    dev = ry.device
-    ty = torch.arange(SPAN_Y, device=dev) // TILE_Y
-    tx = torch.arange(SPAN_X, device=dev) // TILE_X
-    ry = ry * (ty[None, :] < pr["nty"].long()[:, None])[:, None, :]
-    rx = rx * (tx[None, :] < pr["ntx"].long()[:, None])[:, None, :]
-    return ry, rx
-
-
 def _record_of(pr: dict) -> torch.Tensor:
-    """The (T, 5) int32 record (level, y0, x0, nty, ntx) of a `_prepare`
+    """The (T, 5) int32 record (level, y0, x0, ny, nx) of a `_prepare`
     result."""
     return torch.stack([pr[k] for k in RECORD], dim=1).to(torch.int32)
 
@@ -332,7 +280,7 @@ def _roi_record(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
                 aligned: bool, min_level: int = 2,
                 valid: Optional[torch.Tensor] = None,
                 adaptive_cap: Optional[int] = None) -> torch.Tensor:
-    """The per-ROI record (level, y0, x0, nty, ntx) as K1's fused prologue
+    """The per-ROI record (level, y0, x0, ny, nx) as K1's fused prologue
     (`csrc/roi_align_prologue.cuh`) computes it: (T, 5) int32.
 
     The torch twin of the device code, operation for operation: it works
@@ -356,16 +304,17 @@ def _roi_record(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
         return (torch.tensor(1.0, dtype=torch.float32)
                 / torch.tensor(float(d), dtype=torch.float32)).to(dev)
 
+    # detectron2's level (`assign_boxes_to_levels`)
     area = (fb[:, 2] - fb[:, 0]).clamp(min=0) * (fb[:, 3] - fb[:, 1]).clamp(min=0)
     t = torch.sqrt(area) * recip(224.0) + f32(1e-8)
-    base = (torch.floor(f32(4.0) + torch.log2(t))
-            .clamp(min_level, min_level + n_levels - 1).to(torch.int64) - min_level)
+    levels = (torch.floor(f32(4.0) + torch.log2(t))
+              .clamp(min_level, min_level + n_levels - 1).to(torch.int64) - min_level)
 
-    scale_table = f32([1.0 / s for s in strides])
+    scale = f32([1.0 / s for s in strides])[levels]
     off = f32(0.5 if aligned else 0.0)
     inv_p = recip(p)
 
-    def extent(lo, hi, scale):
+    def extent(lo, hi):
         start = lo * scale - off
         length = (hi * scale - off) - start
         if not aligned:
@@ -380,38 +329,14 @@ def _roi_record(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
         pos = bin_sz >= 0
         return torch.where(pos, first, last), torch.where(pos, last, first)
 
-    def extents(levels):
-        scale = scale_table[levels]
-        return (*extent(fb[:, 1], fb[:, 3], scale), *extent(fb[:, 0], fb[:, 2], scale))
-
-    # the window bump (`pallas_level_idx`)
-    y_min, y_max, x_min, x_max = extents(base)
-    need_y = (torch.floor(y_max) + f32(2.0)) - (torch.floor(y_min) - f32(1.0)).clamp(min=0.0)
-    x0_al = torch.floor((torch.floor(x_min) - f32(1.0)).clamp(min=0.0) * f32(0.125)) * f32(8.0)
-    need_x = (torch.floor(x_max) + f32(2.0)) - x0_al
-    overflow = (need_y > SPAN_Y) | (need_x > SPAN_X)
-    over = torch.maximum((y_max - y_min) * recip(SPAN_Y - 4),
-                         (x_max - x_min) * recip(SPAN_X - 11))
-    b_req = torch.ceil(torch.log2(over.clamp(min=1.0))).to(torch.int64)
-    levels = torch.where(overflow, (base + b_req.clamp(min=1)).clamp(max=n_levels - 1), base)
-
-    # window origin and tile counts at the pooled level (`_prepare`)
-    y_min, y_max, x_min, x_max = extents(levels)
-    hp = [max(int(s[1]), SPAN_Y) for s in level_shapes]
-    wp = [(max(int(s[2]), SPAN_X) + 7) // 8 * 8 for s in level_shapes]
     as_t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
-    y0 = (torch.floor(y_min).to(torch.int64) - 1).clamp(min=0)
-    x0 = (torch.floor(x_min).to(torch.int64) - 1).clamp(min=0)
-    x0 = torch.div(x0, 8, rounding_mode="floor") * 8
-    y0 = torch.minimum(y0, as_t([h - SPAN_Y for h in hp])[levels])
-    x0 = torch.minimum(x0, as_t([w - SPAN_X for w in wp])[levels])
-    need_y = torch.floor(y_max).to(torch.int64) + 2 - y0
-    need_x = torch.floor(x_max).to(torch.int64) + 2 - x0
-    nty = torch.div(need_y + TILE_Y - 1, TILE_Y, rounding_mode="floor").clamp(1, N_TILES)
-    ntx = torch.div(need_x + TILE_X - 1, TILE_X, rounding_mode="floor").clamp(1, N_TILES)
+    y0, ny = _cells(*extent(fb[:, 1], fb[:, 3]),
+                    as_t([int(s[1]) for s in level_shapes])[levels])
+    x0, nx = _cells(*extent(fb[:, 0], fb[:, 2]),
+                    as_t([int(s[2]) for s in level_shapes])[levels])
     if valid is not None:
-        nty = torch.where(valid.reshape(-1), nty, torch.zeros_like(nty))
-    return torch.stack([levels, y0, x0, nty, ntx], dim=1).to(torch.int32)
+        ny = torch.where(valid.reshape(-1), ny, torch.zeros_like(ny))
+    return torch.stack([levels, y0, x0, ny, nx], dim=1).to(torch.int32)
 
 
 # --------------------------------------------------------------------------- #
@@ -664,7 +589,7 @@ def multilevel_roi_align_adjoint_cuda(g: torch.Tensor,
 
     g: (T, P, P, C) or (B, N, P, P, C) float32 pooled cotangent;
     feat_shapes: per level (B, H_l, W_l, C); boxes (B, N, 4) and record
-    (T, 5) int32: the forward's boxes and K1's record (nty = 0 marks an
+    (T, 5) int32: the forward's boxes and K1's record (ny = 0 marks an
     invalid ROI, whose cotangent rows are never read); the options are the
     forward's.  Returns float32 (B, H_l, W_l, C) gradients.  CUDA tensors
     launch `csrc/roi_align_adj.cu`, which rebuilds K1's weights from the
@@ -732,7 +657,7 @@ class _TrainPool(torch.autograd.Function):
         ctx.opts = opts
         ctx.shapes = [tuple(f.shape) for f in features]
         ctx.dtypes = [f.dtype for f in features]
-        # invalid ROIs (nty = 0) pool to exact zeros in both versions
+        # invalid ROIs (ny = 0) pool to exact zeros in both versions
         return out.reshape(*boxes.shape[:2], p, p, -1)
 
     @staticmethod
@@ -741,7 +666,7 @@ class _TrainPool(torch.autograd.Function):
         g = g.to(torch.float32)
         if g.device.type == "cpu" and valid is not None:
             g = torch.where(valid[..., None, None, None], g, torch.zeros_like(g))
-        # on the card K2 skips the invalid rows (nty = 0): g goes in as it is
+        # on the card K2 skips the invalid rows (ny = 0): g goes in as it is
         dfeats = multilevel_roi_align_adjoint_cuda(g.contiguous(), ctx.shapes, boxes,
                                                    record, **ctx.opts)
         return (torch.zeros_like(boxes), None, None,

@@ -11,7 +11,9 @@ The port's parameter names ARE the d2 state-dict keys, so a released
     (`schema_options`);
   * `random_state_dict`: seeded He-style weights in that schema (the same
     draws as the test oracle's `he_state_dict`), for runs without a
-    checkpoint;
+    checkpoint, and `bias_for_detections`, which lifts their RPN objectness
+    and foreground class logits so that detections survive scoring (the
+    weights of the committed oracle fixtures `golden_oracle_biased_*`);
   * `load_d2_state_dict` / `load_torch_state_dict`: loading with a check
     that only `num_batches_tracked`, anchor buffers and the pixel
     statistics may be missing or unexpected;
@@ -244,6 +246,22 @@ def _draw(rs: np.random.RandomState, k: str, s: tuple) -> np.ndarray:
     elif "depth_head" in k and len(s) == 4:
         v = (v * 0.1).astype(np.float32)
     return v
+
+
+def bias_for_detections(sd: Mapping[str, np.ndarray], objectness: float = 4.0,
+                        foreground: float = 6.0) -> Dict[str, np.ndarray]:
+    """A copy of `sd` with `objectness` added to the RPN's objectness bias
+    and `foreground` to every class logit's bias but the background's (the
+    last), so a population of proposals and detections survives scoring
+    and NMS."""
+    out = dict(sd)
+    k_obj = "proposal_generator.rpn_head.objectness_logits.bias"
+    k_cls = "roi_heads.box_predictor.cls_score.bias"
+    out[k_obj] = (np.asarray(sd[k_obj]) + objectness).astype(np.float32)
+    cls = np.array(sd[k_cls], np.float32)
+    cls[:-1] += foreground
+    out[k_cls] = cls
+    return out
 
 
 def _ignorable(key: str) -> bool:

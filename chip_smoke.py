@@ -14,17 +14,21 @@ non-zero exit):
   2. each kernel against its plain torch version on the card, on a 480x640
      pyramid (C = 256, B = 2) for the box (N = 1000, 7x7, V2, ratio 0),
      mask (N = 100, 14x14, V1, ratio 2) and plane (N = 100, 14x14, V1,
-     ratio 0) pools, with invalid rows, plus the 5:1 and bumped-level 9:1
-     box sets: K1 in float32 and bfloat16, with the record (level, y0, x0,
-     nty, ntx) its fused prologue writes held integer-exactly against
-     torch `_prepare` and `_roi_record` on the card; K2 in float32 from
-     that record, with the transpose identity <K1(F), G> = <F, K2(G)>
-     summed in float64; then "[f1]": both kernels, uncapped (the default
-     since the repair of fault F1), on ROIs whose bins take more than 4
-     samples (p2 slivers up to 23, the 120x360 door at p3 with 7, ROIs
-     whose extra samples move their window origin, tile count or level
-     bump), the record exact; and both kernels at JAX's cap of 4 (their
-     runtime cap) against the capped plain versions and record;
+     ratio 0) pools, with invalid rows, plus the 5:1 and 9:1 box sets and
+     the 1000 proposals of the reference oracle's 480x640 fixture
+     (tests/fixtures/golden_oracle_biased_480x640.npz, mostly slivers) at
+     all three pools: K1 in float32 and bfloat16, with the record (level,
+     y0, x0, ny, nx) its fused prologue writes held integer-exactly against
+     torch `_prepare` and `_roi_record` on the card and every level
+     detectron2's (fault F2: no ROI leaves it); K2 in float32 from that
+     record, with the transpose identity <K1(F), G> = <F, K2(G)> summed in
+     float64; then "[oracle-rois]": K1's and K2's times on those proposals
+     at a batch of 8 beside their plain versions and bounds; then "[f1]":
+     both kernels, uncapped (the default since the repair of fault F1), on
+     ROIs whose bins take more than 4 samples (p2 slivers up to 23, the
+     120x360 door at p3 with 7), the record exact; and both kernels at
+     JAX's cap of 4 (their runtime cap) against the capped plain versions
+     and record;
   3. the main path: `VideoPipeline` at full width (R50-FPN, 1000
      proposals, 100 detections, mask/plane/axis/depth heads, the shipped
      configs/config.yaml with seeded random weights and score threshold 0)
@@ -44,7 +48,9 @@ non-zero exit):
   6. training-path parity: one float32 step with the kernel pooler and one
      with the gather pooler under autograd, losses and the p2 convs'
      gradients compared; then the two poolers' gradients to p2..p5 on the
-     kernel run's own features, boxes and cotangent;
+     kernel run's own features, boxes and cotangent; then the same with the
+     RPN deltas undamped, whose proposals are slivers, some of which the
+     JAX Pallas kernel pools from a coarser level (`_pallas_moved`);
   7. the temporal stage at full width (480x640, FOCAL_OPT): (a) the
      known-answer clip of tests/test_temporal_truth.py (30 frames of a
      door rotating about a vertical hinge) through `track_planes` and
@@ -119,14 +125,23 @@ non-zero exit):
      on the CPU (configs/config.yaml's model at full width, 480x640, phase
      3's weights, float32, 200 proposals, 20 detections), then the
      `compare_goldens` CLI on the card with the gather pooler and the
-     kernel;
+     kernel; then the reference oracle's fixtures
+     (tests/fixtures/golden_oracle_biased_{480x640,128x160}.npz, with the
+     port's build of their biased weights from seed 0,
+     `bias_for_detections(random_state_dict(0))`) through both routes on
+     the card at the gates of tests/test_torch_goldens.py; then where the
+     card's float32 model departs from the CPU's on the 480x640 fixture
+     (FPN features per level within 1e-5 of their largest value, proposal
+     and detection box differences, with cuDNN's default algorithms,
+     deterministic ones and cuDNN off);
  16. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
-`python3 chip_smoke.py --only f1,refine-serve,refine-train,drpn,ddp-1,ddp-2,
-ddp-cards,export-extra,goldens` builds the kernels and runs just the named phases of
-2, 8 and 10-15 (any subset; "ddp-2" writes phase 9's dataset if it is
-missing); it is
+`python3 chip_smoke.py --only parity,oracle-rois,f1,train-parity,refine-serve,
+refine-train,drpn,ddp-1,ddp-2,ddp-cards,export-extra,goldens` builds the kernels
+and runs just the named phases of 2, 6, 8 and 10-15 (any subset; "parity" is
+phase 2's kernel and adjoint parity, "train-parity" phase 6 on phase 5's
+batch; "ddp-2" writes phase 9's dataset if it is missing); it is
 for iterating on those phases, makes no kernel line, and its last line,
 `{"partial": true, "phases": [...], ...}`, has no "ok" key: it is never
 the result of a whole run.
@@ -193,8 +208,16 @@ def _random_boxes(rs, b, n):
                            np.minimum(y1 + sizes * 0.7, 480)], 2).astype(np.float32)
 
 
+def _oracle_proposals() -> np.ndarray:
+    """(1000, 4): the reference oracle's proposals on its 480x640 fixture,
+    most of them slivers (random-weight RPN deltas)."""
+    path = os.path.join(ROOT, "tests", "fixtures", "golden_oracle_biased_480x640.npz")
+    return np.load(path)["proposal_boxes"].astype(np.float32)
+
+
 def _adversarial_boxes():
-    """bench.py's aspect5 (in-contract 5:1) and aspect9_bumped_level sets."""
+    """bench.py's aspect5 (5:1) and aspect9 sets; the wide 9:1 box is one
+    that the JAX Pallas kernel pools from p3 instead of p2."""
     adv = []
     for max_sqrt_area in (112.0, 224.0, 448.0):
         s = max_sqrt_area * 0.99
@@ -207,7 +230,7 @@ def _adversarial_boxes():
     adv[..., 1::2] = adv[..., 1::2].clip(0, 480)
     nine = np.asarray([[[10.0, 200.0, 344.0, 237.0],
                         [200.0, 10.0, 237.0, 444.0]]], np.float32)
-    return {"aspect5": adv, "aspect9_bumped_level": nine}
+    return {"aspect5": adv, "aspect9": nine}
 
 
 def phase_kernel_parity(rac):
@@ -228,12 +251,16 @@ def phase_kernel_parity(rac):
         for name, bx in _adversarial_boxes().items():
             cases.append((name, [f[:1].contiguous() for f in feats2],
                           torch.from_numpy(bx).cuda(), None, 7, 0, True))
+        oracle = torch.from_numpy(_oracle_proposals()[None]).cuda()
+        for name, (p, sr, aligned) in POOLS.items():
+            cases.append((f"oracle_{name}", [f[:1].contiguous() for f in feats2], oracle,
+                          None, p, sr, aligned))
         for name, feats, boxes, valid, p, sr, aligned in cases:
             kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr,
                       aligned=aligned, valid=valid)
             got = rac.multilevel_roi_align_cuda(feats, boxes, **kw)
             want = rac.multilevel_roi_align_separable(feats, boxes, **kw)
-            bumped, n_rec = _check_record(rac, feats, boxes, valid, p, sr, aligned)
+            n_rec, cells = _check_record(rac, feats, boxes, valid, p, sr, aligned)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
@@ -242,15 +269,16 @@ def phase_kernel_parity(rac):
                  f"aligned={int(aligned)} rois={boxes.shape[0] * boxes.shape[1]:5d} "
                  f"max_abs_err={err:.3e} max|out|={scale:.3e} tol={tol * scale:.3e} "
                  f"invalid_rows_zero={zero_ok}; record == _prepare == _roi_record on "
-                 f"{n_rec} ROIs ({bumped} from a bumped level)")
+                 f"{n_rec} ROIs, each on its detectron2 level; {cells}")
             assert np.isfinite(err) and err <= tol * scale, (name, dtype, err)
             assert zero_ok, (name, dtype)
 
 
 def _check_record(rac, feats, boxes, valid, p, sr, aligned):
     """K1's record (its fused prologue, on the card) against torch
-    `_prepare` and `_roi_record` on the card, integer-exactly; returns
-    (ROIs pooled from a bumped level, ROIs checked)."""
+    `_prepare` and `_roi_record` on the card, integer-exactly, and every
+    level detectron2's; returns (ROIs checked, a note of the largest cell
+    blocks)."""
     import torch
     opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
     _, record = rac._forward_kernel(feats, boxes, valid, dict(opts, min_level=2))
@@ -262,7 +290,43 @@ def _check_record(rac, feats, boxes, valid, p, sr, aligned):
     assert not bool(bad.any()), (int(bad.sum()), record[bad][:4].tolist(),
                                  want[bad][:4].tolist(), twin[bad][:4].tolist())
     base = rac.assign_boxes_to_levels(boxes.reshape(-1, 4).float()) - 2
-    return int((record[:, 0].long() != base).sum()), int(record.shape[0])
+    off = int((record[:, 0].long() != base).sum())
+    assert off == 0, off
+    ny, nx = record[:, 3].long(), record[:, 4].long()
+    on = ny > 0
+    note = (f"cells per valid ROI up to {int((ny * nx)[on].max()) if bool(on.any()) else 0} "
+            f"(ny up to {int(ny.max())}, nx up to {int(nx[on].max()) if bool(on.any()) else 0}), "
+            f"{int(_pallas_moved(boxes, valid, p, sr, aligned).sum())} valid ROIs that the JAX "
+            f"Pallas kernel pools from a coarser level")
+    return int(record.shape[0]), note
+
+
+def _pallas_moved(boxes, valid, p, sr, aligned):
+    """(T,) bool: the valid ROIs that the JAX Pallas kernel pools from a
+    level coarser than detectron2's: a copy of its rule (`pallas_level_idx`,
+    articulation3d_tpu/ops/roi_align_pallas.py:120-171) on the port's own
+    sample placement.  With the JAX package's cap of 4 samples, an ROI
+    moves when the cells its samples need at its level (rows from
+    floor(first) - 1, clamped at 0, to floor(last) + 1; columns the same
+    from an origin floored to a multiple of 8) exceed 64 rows or 80
+    columns, unless its level is the top one (p5)."""
+    import torch
+
+    from articulation3d_tpu_torch.ops.roi_align import _sample_coords, assign_boxes_to_levels
+    flat = boxes.reshape(-1, 4).float()
+    lv = assign_boxes_to_levels(flat) - 2
+    scale = torch.tensor([1.0 / s for s in STRIDES], dtype=torch.float32,
+                         device=flat.device)[lv]
+    ys, xs, ym, xm = _sample_coords(flat, scale, p, sr, aligned, adaptive_cap=4)
+    lo = lambda c, m: torch.where(m > 0, c, torch.full_like(c, 1e9)).amin((1, 2))
+    hi = lambda c, m: torch.where(m > 0, c, torch.full_like(c, -1e9)).amax((1, 2))
+    need_y = torch.floor(hi(ys, ym)) + 2 - (torch.floor(lo(ys, ym)) - 1).clamp(min=0)
+    x0 = torch.floor((torch.floor(lo(xs, xm)) - 1).clamp(min=0) / 8) * 8
+    need_x = torch.floor(hi(xs, xm)) + 2 - x0
+    moved = ((need_y > 64) | (need_x > 80)) & (lv < len(STRIDES) - 1)
+    if valid is not None:
+        moved &= valid.reshape(-1).bool()
+    return moved
 
 
 def phase_adjoint_parity(rac):
@@ -282,6 +346,10 @@ def phase_adjoint_parity(rac):
     for name, bx in _adversarial_boxes().items():
         cases.append((name, [f[:1].contiguous() for f in feats2],
                       torch.from_numpy(bx).cuda(), None, 7, 0, True))
+    oracle = torch.from_numpy(_oracle_proposals()[None]).cuda()
+    for name, (p, sr, aligned) in POOLS.items():
+        cases.append((f"oracle_{name}", [f[:1].contiguous() for f in feats2], oracle, None,
+                      p, sr, aligned))
     for name, feats, boxes, valid, p, sr, aligned in cases:
         shapes = [f.shape for f in feats]
         opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
@@ -303,6 +371,46 @@ def phase_adjoint_parity(rac):
              f"<K1(F),G>={lhs:.9e} <F,K2(G)>={rhs:.9e} rel_err={rel:.3e} (tol 1e-5)")
         assert np.isfinite(err) and err <= 1e-4 * scale, (name, err)
         assert rel <= 1e-5, (name, rel)
+
+
+def phase_oracle_rois(rac, card) -> dict:
+    """"[oracle-rois]": K1 (bfloat16 maps, as served) and K2 (float32) on
+    the oracle's 1000 proposals, repeated over a batch of 8 (8000 ROIs,
+    the serving box pool's count) at each pool's options: the kernel alone
+    beside its plain version and its bound, and the cells per ROI beside
+    the damped serving proposals'.  Returns {pool: times}."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    feats32 = _pyramid(gen, 8, torch.float32)
+    feats16 = [f.to(torch.bfloat16) for f in feats32]
+    shapes = [f.shape for f in feats32]
+    boxes = torch.from_numpy(np.repeat(_oracle_proposals()[None], 8, axis=0)).cuda()
+    out = {}
+    for pool, (p, sr, al) in POOLS.items():
+        opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=al)
+        n_rec, cells = _check_record(rac, feats16, boxes, None, p, sr, al)
+        kern = _time_kernel(rac, feats16, boxes, None, p, sr, al)
+        plain = _time_ms(lambda: rac.multilevel_roi_align_separable(feats16, boxes, **opts),
+                         iters=3, warmup=1)
+        bound, by = _bound(rac, feats16, boxes, None, p, sr, al)
+        fwd, record = rac._forward_kernel(feats32, boxes, None, dict(opts, min_level=2))
+        g = torch.randn(fwd.shape, generator=gen, device="cuda")
+        kboxes, _ = rac._kernel_boxes(boxes, None, p)
+        grads = [torch.zeros(s, device="cuda") for s in shapes]
+        adj = _time_ms(lambda: rac._launch_adj(g, kboxes, record, dict(opts, min_level=2),
+                                               grads))
+        pr = rac._prepare(shapes, boxes, **opts)
+        adj_plain = _time_ms(lambda: rac.multilevel_roi_align_adjoint_separable(g, shapes, pr),
+                             iters=3, warmup=1)
+        adj_bound, adj_by = _adjoint_bound(rac, shapes, pr, g)
+        _log(f"[oracle-rois] {pool:5s} P={p:2d} rois={n_rec}: K1 bf16 kernel alone "
+             f"{kern:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms by {by} "
+             f"({kern / bound:.2f}x); K2 float32 kernel alone {adj:.4f} ms, plain "
+             f"{adj_plain:.4f} ms, bound {adj_bound:.4f} ms by {adj_by} "
+             f"({adj / adj_bound:.2f}x); {cells} ({card})")
+        out[pool] = dict(kernel_ms=kern, plain_ms=plain, bound_ms=bound, adj_kernel_ms=adj,
+                         adj_plain_ms=adj_plain, adj_bound_ms=adj_bound)
+    return out
 
 
 def _match(ref_boxes, out_boxes, iou_thresh=0.7):
@@ -335,17 +443,14 @@ def _bound(rac, features, boxes, valid, p, sr, aligned):
     import torch
     pr = rac._prepare([f.shape for f in features], boxes, strides=STRIDES,
                       output_size=p, sampling_ratio=sr, aligned=aligned, valid=valid)
-    ry, rx = rac._predicated_weights(pr)
     lv, b, y0, x0 = (pr[k].long().cpu().numpy() for k in ("levels", "batch_ids", "y0", "x0"))
-    ry_nz, rx_nz = (ry != 0).cpu().numpy(), (rx != 0).cpu().numpy()     # (T, P, span)
+    ry_nz, rx_nz = (pr["ry"] != 0).cpu().numpy(), (pr["rx"] != 0).cpu().numpy()  # (T, P, n)
     c = features[0].shape[-1]
     grids = [np.zeros(f.shape[:3], bool) for f in features]
     flops = 0
-    for r in np.nonzero(pr["nty"].cpu().numpy() > 0)[0]:
-        h, w = features[lv[r]].shape[1:3]
+    for r in np.nonzero(pr["ny"].cpu().numpy() > 0)[0]:
         ys = np.nonzero(ry_nz[r].any(0))[0]
         xs = np.nonzero(rx_nz[r].any(0))[0]
-        ys, xs = ys[y0[r] + ys < h], xs[x0[r] + xs < w]
         if len(ys) and len(xs):
             grids[lv[r]][b[r], y0[r] + ys[0]:y0[r] + ys[-1] + 1,
                          x0[r] + xs[0]:x0[r] + xs[-1] + 1] = True
@@ -403,6 +508,7 @@ def main() -> int:
     # 2. kernels vs plain versions ---------------------------------------
     phase_kernel_parity(rac)
     phase_adjoint_parity(rac)
+    oracle_rois = phase_oracle_rois(rac, card)
     f1 = phase_f1(rac)
 
     # 3. main path -------------------------------------------------------
@@ -478,7 +584,7 @@ def main() -> int:
         valid = kw["valid"]
         args = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=al,
                     valid=valid)
-        bumped, n_rec = _check_record(rac, roi_feats, boxes, valid, p, sr, al)
+        n_rec, cells = _check_record(rac, roi_feats, boxes, valid, p, sr, al)
         ms = _time_ms(lambda: rac.multilevel_roi_align_cuda(roi_feats, boxes, **args))
         kern = _time_kernel(rac, roi_feats, boxes, valid, p, sr, al)
         plain = _time_ms(lambda: rac.multilevel_roi_align_separable(roi_feats, boxes, **args),
@@ -492,7 +598,7 @@ def main() -> int:
              f"(kernel alone {kern:.4f} ms, wrapper's own {ms - kern:.4f} ms), plain "
              f"{plain:.4f} ms, bound {bound:.4f} ms by {by}; wrapper/bound "
              f"{ms / bound:.2f}x, kernel/bound {kern / bound:.2f}x; record == _prepare on "
-             f"{n_rec} ROIs ({bumped} bumped); {over4}; kernel alone with JAX's cap of 4 "
+             f"{n_rec} ROIs; {cells}; {over4}; kernel alone with JAX's cap of 4 "
              f"{kern4:.4f} ms ({card})")
         per_pool[stage] = dict(ms=ms, kernel_ms=kern, plain_ms=plain, bound_ms=bound,
                                kernel_ms_cap4=kern4)
@@ -511,14 +617,8 @@ def main() -> int:
         rac.multilevel_roi_align_cuda.launches = 0
         res = model32.inference(images)
         outs[impl] = res["detections"]
-        props = res["proposals"]["boxes"].reshape(-1, 4)
-        bumped = int((rac.pallas_level_idx(props, n_levels=4, strides=STRIDES,
-                                           output_size=7, sampling_ratio=0,
-                                           aligned=True)
-                      != rac.assign_boxes_to_levels(props) - 2).sum())
         _log(f"[path-parity] {impl} pooler: kernel launches "
-             f"{rac.multilevel_roi_align_cuda.launches}; proposals pooled from a "
-             f"bumped level by the kernel: {bumped}/{props.shape[0]}")
+             f"{rac.multilevel_roi_align_cuda.launches}")
     a, b = outs["cuda"], outs["torch"]
     n_ref = n_match = 0
     box_err, head_err = 0.0, {}
@@ -603,6 +703,9 @@ def main() -> int:
         "kernel_ms": tot["kernel_ms"],
         "pools": per_pool,
         "training_box_pool": train["k1_train"],
+        # the oracle's 1000 proposals (mostly slivers) over a batch of 8
+        "oracle_proposals": {k: {m: v[m] for m in ("kernel_ms", "plain_ms", "bound_ms")}
+                             for k, v in oracle_rois.items()},
         "record_exact": True,
     }, {
         "name": "roi_align_adj",
@@ -621,6 +724,8 @@ def main() -> int:
         "library_ms": None,
         "kernel_ms": train["adj_kernel_ms"],
         "float4_atomics": train["adj_atomics"],
+        "oracle_proposals": {k: {m: v["adj_" + m] for m in ("kernel_ms", "plain_ms", "bound_ms")}
+                             for k, v in oracle_rois.items()},
     }]
     _log(f"[kernels] K1 per inference batch of 8 = box + mask + plane pools; kernel "
          f"alone {tot['kernel_ms']:.4f} ms; K2 per training step (box pool of "
@@ -912,17 +1017,21 @@ def _train_batch(cfg, b: int, g: int = 4):
     return batch
 
 
-def _train_weights(seed: int = 0):
-    """`random_state_dict(seed)` with the RPN delta damping of phase 3, and
-    the frozen stem conv scaled by 1/256: d2's caffe trunk takes raw 0..255
+def _train_weights(seed: int = 0, rpn_delta_scale: float = 0.01):
+    """`random_state_dict(seed)` with the RPN anchor-delta weights scaled by
+    `rpn_delta_scale` (phase 3's damping of 0.01 by default), and the
+    frozen stem conv scaled by 1/256: d2's caffe trunk takes raw 0..255
     pixels (pixel_std 1), so random trunk weights give O(300) features and
     O(300) gradients, and SGD at lr 0.002 diverges within a few steps; the
     stem and res2 are frozen (freeze_at 2), so the scale is a fixed
-    normalisation of the input and the features come out O(1)."""
+    normalisation of the input and the features come out O(1).  With the
+    features at that scale, undamped deltas (scale 1) still leave the
+    proposals near their anchors; a scale of 256 gives the RPN the deltas
+    that the serving weights' O(300) features give it: slivers."""
     from articulation3d_tpu_torch.weights import random_state_dict
     sd = random_state_dict(seed)
     for k in ("weight", "bias"):
-        sd[f"proposal_generator.rpn_head.anchor_deltas.{k}"] *= 0.01
+        sd[f"proposal_generator.rpn_head.anchor_deltas.{k}"] *= rpn_delta_scale
     sd["backbone.bottom_up.stem.conv1.weight"] *= 1.0 / 256.0
     return sd
 
@@ -1029,12 +1138,12 @@ def phase_training(rac, card) -> dict:
     opts = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=al)
     args = dict(opts, valid=valid)
     shapes = [f.shape for f in feats]
-    bumped, n_rec = _check_record(rac, feats, boxes, valid, p, sr, al)
+    n_rec, cells = _check_record(rac, feats, boxes, valid, p, sr, al)
     pr = rac._prepare(shapes, boxes, **args)
     _, record = rac._forward_kernel(feats, boxes, valid, dict(opts, min_level=2))
     kboxes, _ = rac._kernel_boxes(boxes, None, p)
     # K2 takes the cotangent as the pooler gets it: invalid rows are skipped
-    # by their record (nty = 0), as the plain version skips them
+    # by their record (ny = 0), as the plain version skips them
     got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **opts)
     want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
     torch.cuda.synchronize()
@@ -1067,7 +1176,7 @@ def phase_training(rac, card) -> dict:
          f"the bound); max_abs_err {err:.3e} (max|plain| {scale:.3e}); "
          f"K1 wrapper {fwd_ms:.4f} ms (kernel alone {fwd_kernel_ms:.4f} ms), plain "
          f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms by {fwd_by}, wrapper/bound "
-         f"{fwd_ms / fwd_bound:.2f}x; record == _prepare on {n_rec} ROIs ({bumped} bumped); "
+         f"{fwd_ms / fwd_bound:.2f}x; record == _prepare on {n_rec} ROIs; {cells}; "
          f"{_over_four(rac, boxes, valid, p, sr, al)}; K1 alone with JAX's cap of 4 "
          f"{fwd_kernel4:.4f} ms ({card})")
     return dict(k1=k1, k2=k2, rois=rois, adj_err=err, adj_ms=adj_ms, busy=busy,
@@ -1088,24 +1197,23 @@ def _adjoint_bound(rac, shapes, pr, g):
     read-modify-write are costs of this design, not of the function); and
     the multiply-adds over the support at the fp32 rate.  Returns
     (ms, "bytes" | "operations")."""
-    ry, rx = rac._predicated_weights(pr)
-    ry_nz, rx_nz = (ry != 0).cpu().numpy(), (rx != 0).cpu().numpy()
-    nty = pr["nty"].cpu().numpy()
+    ry_nz, rx_nz = (pr["ry"] != 0).cpu().numpy(), (pr["rx"] != 0).cpu().numpy()
+    ok = pr["ny"].cpu().numpy() > 0
     p, c = int(g.shape[-2]), int(g.shape[-1])
     sup = lambda nz: sum(int(np.ptp(np.nonzero(row)[0])) + 1 for row in nz if row.any())
-    flops = sum(2 * c * sup(ry_nz[r]) * sup(rx_nz[r]) for r in np.nonzero(nty > 0)[0])
+    flops = sum(2 * c * sup(ry_nz[r]) * sup(rx_nz[r]) for r in np.nonzero(ok)[0])
     out = sum(int(np.prod(s[:3])) for s in shapes) * c * 4
-    nbytes = int((nty > 0).sum()) * p * p * c * 4 + out
+    nbytes = int(ok.sum()) * p * p * c * 4 + out
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _adjoint_atomics(rac, pr, c: int) -> int:
-    """The float4 atomic adds one K2 call issues: per valid ROI, the window
+    """The float4 atomic adds one K2 call issues: per valid ROI, the cell
     rows and columns that some output row's (column's) support holds,
     times C / 4."""
     import torch
-    ry, rx = rac._predicated_weights(pr)
+    ry, rx = pr["ry"], pr["rx"]
 
     def covered(w):                     # (T, P, span) -> (T,) cells covered
         nz = w != 0
@@ -1117,7 +1225,7 @@ def _adjoint_atomics(rac, pr, c: int) -> int:
                          torch.full_like(has, -1, dtype=torch.long))
         return ((idx >= lo[..., None]) & (idx <= hi[..., None])).any(1).sum(-1)
 
-    valid = pr["nty"] > 0
+    valid = pr["ny"] > 0
     return int((covered(ry) * covered(rx))[valid].sum()) * (c // 4)
 
 
@@ -1167,15 +1275,19 @@ def _device_time(prof):
 def phase_training_parity(rac, train) -> None:
     """One float32 step from the same weights and generator seed with the
     kernel pooler ("cuda": K1 forward, K2 backward) and with the gather
-    pooler under autograd ("torch"): no sampled ROI may come from a bumped
-    level; losses within 1e-4 relative; the p2 convs' gradients (which
-    also carry the RPN's) within 1e-3 x max|grad|.  Then the pooler alone:
-    on the kernel run's own features, boxes and cotangent, K3's gradients
-    to p2..p5 (K2) against the gather's autograd within 1e-4 x max|grad|
-    per level (the K2 parity tolerance).  The two runs' own pooler
-    gradients are printed beside their cotangents, not held to a
-    tolerance: the L1 box loss has a kink, so a float32 difference in the
-    forward can flip the sign of a foreground ROI's cotangent."""
+    pooler under autograd ("torch"): losses within 1e-4 relative; the p2
+    convs' gradients (which also carry the RPN's) within 1e-3 x max|grad|.
+    Then the pooler alone: on the kernel run's own features, boxes and
+    cotangent, K3's gradients to p2..p5 (K2) against the gather's autograd
+    within 1e-4 x max|grad| per level (the K2 parity tolerance).  The two
+    runs' own pooler gradients are printed beside their cotangents, not
+    held to a tolerance: the L1 box loss has a kink, so a float32
+    difference in the forward can flip the sign of a foreground ROI's
+    cotangent.  All of it twice: with phase 5's damped RPN deltas, and with
+    the deltas undamped at the serving weights' scale (`_train_weights`,
+    x256), whose proposals, and so many sampled ROIs, are slivers; that
+    step fails unless some of its sampled ROIs are ones the JAX Pallas
+    kernel pools from a coarser level (`_pallas_moved`)."""
     import torch
 
     from articulation3d_tpu_torch.models import planercnn as pmod
@@ -1185,73 +1297,91 @@ def phase_training_parity(rac, train) -> None:
     from articulation3d_tpu_torch.weights import load_d2_state_dict
 
     cfg = _stage1_config(dtype="float32")
-    model = PlaneRCNN(cfg)
-    load_d2_state_dict(model, {k: v for k, v in _train_weights().items()
-                               if k in model.state_dict()})
-    model = model.cuda().train()
-    freeze_mask(model, cfg.model.freeze)
     batch = to_device(train["batch"], "cuda")
     names = ("backbone.fpn_output2.weight", "backbone.fpn_lateral2.weight")
-    res = {}
-    for impl in ("cuda", "torch"):
-        model.config = cfg.replace(model=dataclasses.replace(cfg.model, roi_pooler_impl=impl))
-        model.zero_grad(set_to_none=True)
-        store = []
-        orig = _record_train_pool(pmod, store)
-        rac.multilevel_roi_align_cuda.launches = 0
-        rac.multilevel_roi_align_adjoint_cuda.launches = 0
-        try:
-            gen = torch.Generator(device="cuda").manual_seed(7)
-            losses = compute_losses(model, batch, gen)
-            sum(losses.values()).backward()
-        finally:
-            pmod.multilevel_roi_align_train = orig
-        torch.cuda.synchronize()
-        boxes, valid = store[0]["boxes"], store[0]["kw"]["valid"]
-        flat = boxes.reshape(-1, 4)[valid.reshape(-1)]
-        bumped = int((rac.pallas_level_idx(flat, n_levels=4, strides=STRIDES, output_size=7,
-                                           sampling_ratio=0, aligned=True)
-                      != rac.assign_boxes_to_levels(flat) - 2).sum())
-        grads = {n: dict(model.named_parameters())[n].grad.detach().clone() for n in names}
-        assert all(d is not None for d in store[0]["dfeats"]) and "g" in store[0], impl
-        res[impl] = ({k: float(v.detach()) for k, v in losses.items()}, grads, boxes, store[0])
-        _log(f"[train-parity] {impl} pooler, float32, {batch['images'].shape[0]} images: "
-             f"K1 launches {rac.multilevel_roi_align_cuda.launches}, K2 launches "
-             f"{rac.multilevel_roi_align_adjoint_cuda.launches}; sampled ROIs pooled from a "
-             f"bumped level: {bumped}/{flat.shape[0]}; losses "
-             f"{dict((k, round(v, 6)) for k, v in res[impl][0].items())}")
-        assert bumped == 0, bumped
-    (la, ga, ba, ia), (lb, gb, bb, ib) = res["cuda"], res["torch"]
-    assert bool((ba == bb).all()), "the two runs sampled different ROIs"
-    lerr = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12) for k in lb)
-    gerr = {n: float((ga[n] - gb[n]).abs().max()) / float(gb[n].abs().max()) for n in names}
-    _log(f"[train-parity] losses max rel err {lerr:.3e} (tol 1e-4); p2 conv gradients max "
-         f"abs err / max|grad| {dict((n, float('%.3e' % v)) for n, v in gerr.items())} "
-         f"(tol 1e-3)")
-    assert lerr <= 1e-4, lerr
-    assert all(v <= 1e-3 for v in gerr.values()), gerr
+    for damped in (True, False):
+        tag = "damped RPN deltas" if damped else "RPN deltas x256 (slivers)"
+        model = PlaneRCNN(cfg)
+        sd = _train_weights(rpn_delta_scale=0.01 if damped else 256.0)
+        load_d2_state_dict(model, {k: v for k, v in sd.items() if k in model.state_dict()})
+        del sd
+        model = model.cuda().train()
+        freeze_mask(model, cfg.model.freeze)
+        res = {}
+        for impl in ("cuda", "torch"):
+            model.config = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                                 roi_pooler_impl=impl))
+            model.zero_grad(set_to_none=True)
+            store = []
+            orig = _record_train_pool(pmod, store)
+            rac.multilevel_roi_align_cuda.launches = 0
+            rac.multilevel_roi_align_adjoint_cuda.launches = 0
+            try:
+                gen = torch.Generator(device="cuda").manual_seed(7)
+                losses = compute_losses(model, batch, gen)
+                sum(losses.values()).backward()
+            finally:
+                pmod.multilevel_roi_align_train = orig
+            torch.cuda.synchronize()
+            item = store[0]
+            boxes, valid = item["boxes"], item["kw"]["valid"]
+            grads = {n: dict(model.named_parameters())[n].grad.detach().clone() for n in names}
+            assert all(d is not None for d in item["dfeats"]) and "g" in item, impl
+            res[impl] = ({k: float(v.detach()) for k, v in losses.items()}, grads, boxes, item)
+            note = ""
+            if impl == "cuda":
+                kw = item["kw"]
+                _, note = _check_record(rac, item["features"], boxes, valid, kw["output_size"],
+                                        kw["sampling_ratio"], kw["aligned"])
+                flat = boxes.reshape(-1, 4)[valid.reshape(-1)]
+                wh = (flat[:, 2:] - flat[:, :2]).clamp(min=1e-6)
+                aspect = torch.maximum(wh[:, 0] / wh[:, 1], wh[:, 1] / wh[:, 0])
+                note = (f"; sampled ROIs at 5:1 or more {int((aspect >= 5).sum())}/"
+                        f"{flat.shape[0]}, {note}")
+                res[impl] += (int(_pallas_moved(boxes, valid, kw["output_size"],
+                                                kw["sampling_ratio"], kw["aligned"]).sum()),)
+            _log(f"[train-parity] {tag}, {impl} pooler, float32, "
+                 f"{batch['images'].shape[0]} images: K1 launches "
+                 f"{rac.multilevel_roi_align_cuda.launches}, K2 launches "
+                 f"{rac.multilevel_roi_align_adjoint_cuda.launches}; losses "
+                 f"{dict((k, round(v, 6)) for k, v in res[impl][0].items())}{note}")
+        (la, ga, ba, ia, moved), (lb, gb, bb, ib) = res["cuda"], res["torch"]
+        assert bool((ba == bb).all()), "the two runs sampled different ROIs"
+        if not damped:   # ROIs that the JAX Pallas kernel pools off their level
+            assert moved > 0, moved
+        lerr = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12) for k in lb)
+        gerr = {n: float((ga[n] - gb[n]).abs().max()) / float(gb[n].abs().max())
+                for n in names}
+        _log(f"[train-parity] {tag}: losses max rel err {lerr:.3e} (tol 1e-4); p2 conv "
+             f"gradients max abs err / max|grad| "
+             f"{dict((n, float('%.3e' % v)) for n, v in gerr.items())} (tol 1e-3)")
+        assert lerr <= 1e-4, lerr
+        assert all(v <= 1e-3 for v in gerr.values()), gerr
 
-    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-    dg = (ia["g"] - ib["g"]).abs().flatten(2).amax(-1)             # per ROI
-    _log(f"[train-parity] the two runs' cotangents at the pooler: max abs err / max|g| "
-         f"{rel(ia['g'], ib['g']):.3e}, ROIs whose rows differ by more than 1e-4 x max|g|: "
-         f"{int((dg > 1e-4 * float(ib['g'].abs().max())).sum())}/{dg.numel()}; their "
-         f"pooler gradients, max abs err / max|grad| per level "
-         f"{['%.3e' % rel(a, b) for a, b in zip(ia['dfeats'], ib['dfeats'])]}")
-    # the pooler alone, on one set of features, boxes and cotangent
-    vjp = {}
-    for impl in ("cuda", "torch"):
-        fs = [f.clone().requires_grad_(True) for f in ia["features"]]
-        out = rac.multilevel_roi_align_train(fs, ia["boxes"], **dict(ia["kw"], impl=impl))
-        vjp[impl] = torch.autograd.grad(out, fs, grad_outputs=ia["g"])
-    torch.cuda.synchronize()
-    perr = [rel(a, b) for a, b in zip(vjp["cuda"], vjp["torch"])]
-    scale = [float(b.abs().max()) for b in vjp["torch"]]
-    _log(f"[train-parity] pooler alone, one cotangent: K3 (K2) against the gather's autograd, "
-         f"max abs err / max|grad| per level p2..p5 {['%.3e' % e for e in perr]} (tol 1e-4; "
-         f"max|grad| {['%.3e' % v for v in scale]})")
-    assert all(e <= 1e-4 for e in perr), perr
-    assert scale[0] > 0, scale
+        rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        dg = (ia["g"] - ib["g"]).abs().flatten(2).amax(-1)             # per ROI
+        _log(f"[train-parity] {tag}: the two runs' cotangents at the pooler: max abs err / "
+             f"max|g| {rel(ia['g'], ib['g']):.3e}, ROIs whose rows differ by more than 1e-4 x "
+             f"max|g|: {int((dg > 1e-4 * float(ib['g'].abs().max())).sum())}/{dg.numel()}; "
+             f"their pooler gradients, max abs err / max|grad| per level "
+             f"{['%.3e' % rel(a, b) for a, b in zip(ia['dfeats'], ib['dfeats'])]}")
+        # the pooler alone, on one set of features, boxes and cotangent
+        vjp = {}
+        for impl in ("cuda", "torch"):
+            fs = [f.clone().requires_grad_(True) for f in ia["features"]]
+            out = rac.multilevel_roi_align_train(fs, ia["boxes"], **dict(ia["kw"], impl=impl))
+            vjp[impl] = torch.autograd.grad(out, fs, grad_outputs=ia["g"])
+        torch.cuda.synchronize()
+        perr = [rel(a, b) for a, b in zip(vjp["cuda"], vjp["torch"])]
+        scale = [float(b.abs().max()) for b in vjp["torch"]]
+        _log(f"[train-parity] {tag}: pooler alone, one cotangent: K3 (K2) against the "
+             f"gather's autograd, max abs err / max|grad| per level p2..p5 "
+             f"{['%.3e' % e for e in perr]} (tol 1e-4; max|grad| "
+             f"{['%.3e' % v for v in scale]})")
+        assert all(e <= 1e-4 for e in perr), perr
+        assert scale[0] > 0, scale
+        del model, res, vjp
+        torch.cuda.empty_cache()
 
 
 def _profile_step(pipe, frames, card) -> None:
@@ -1309,13 +1439,12 @@ def _time_kernel(rac, feats, boxes, valid, p, sr, aligned, adaptive_cap=None) ->
 
 def _over_four(rac, boxes, valid, p, sr, aligned) -> str:
     """How many valid ROIs of a pool take more than 4 samples per bin at
-    their pooled level (the count JAX caps), and the largest count."""
+    their detectron2 level (the count JAX caps), and the largest count."""
     import torch
 
     from articulation3d_tpu_torch.ops.roi_align import sample_counts
     flat = boxes.reshape(-1, 4).float()
-    lvl = rac.pallas_level_idx(flat, n_levels=4, strides=STRIDES, output_size=p,
-                               sampling_ratio=sr, aligned=aligned)
+    lvl = rac.assign_boxes_to_levels(flat) - 2
     scale = torch.tensor([1.0 / s for s in STRIDES], device=flat.device)[lvl]
     n = sample_counts(flat, scale, p, sr, aligned)
     if valid is not None:
@@ -1824,9 +1953,8 @@ def phase_recipe(rac, card, phase5) -> dict:
 # F1: uncapped adaptive sampling in both kernels
 # --------------------------------------------------------------------------- #
 
-# ROIs whose uncapped samples move their record away from the capped one
-# (found on the CPU with `_roi_record`, adaptive_cap None vs 4): the box
-# pool's window origin y0 and tile count ntx, the 14x14 pools' level bump
+# slivers and tall boxes whose bins take 5 to 23 samples (found on the CPU
+# with `_roi_record`, adaptive_cap None vs 4)
 F1_MOVED = {
     "box": [[82.84113311767578, 7.598225116729736, 639.9981689453125, 262.3997802734375],
             [75.51812744140625, 27.29754066467285, 131.4962158203125, 246.4310760498047],
@@ -1840,8 +1968,8 @@ F1_MOVED = {
 
 def _f1_boxes(pool: str) -> np.ndarray:
     """(1, N, 4): p2 slivers up to the full 640-px width (23 samples per bin
-    at 7x7), the 120x360 door (7 samples per bin at p3), the record-moving
-    ROIs above and 2000 random boxes of 20-640 px."""
+    at 7x7), the 120x360 door (7 samples per bin at p3), the ROIs above and
+    2000 random boxes of 20-640 px."""
     rs = np.random.RandomState(0)
     slivers = [[0.0, 100.0, 640.0, 112.0], [5.0, 30.0, 637.0, 40.0],
                [300.0, 0.0, 310.0, 480.0], [20.0, 200.0, 500.0, 215.0]]
@@ -1880,7 +2008,7 @@ def phase_f1(rac) -> dict:
             feats = feats32 if dtype == torch.float32 else [f.to(dtype) for f in feats32]
             got = rac.multilevel_roi_align_cuda(feats, boxes, **opts)
             want = rac.multilevel_roi_align_separable(feats, boxes, **opts)
-            bumped, n_rec = _check_record(rac, feats, boxes, None, p, sr, aligned)
+            n_rec, cells = _check_record(rac, feats, boxes, None, p, sr, aligned)
             _, record = rac._forward_kernel(feats, boxes, None, dict(opts, min_level=2))
             torch.cuda.synchronize()
             err, ref = float((got - want).abs().max()), float(want.abs().max())
@@ -1888,10 +2016,9 @@ def phase_f1(rac) -> dict:
             _log(f"[f1] K1 {pool:5s} P={p:2d} {str(dtype)[6:]:8s} rois={n_rec}: samples per bin "
                  f"up to {int(counts.max())}, {int((counts > 4).sum())} ROIs above 4; "
                  f"max_abs_err {err:.3e} (tol {tol * ref:.3e}); record == _prepare == "
-                 f"_roi_record ({bumped} bumped); records the cap would change: "
-                 f"{int(moved.sum())} (level {int((record[:, 0] != capped[:, 0]).sum())}, "
-                 f"y0 {int((record[:, 1] != capped[:, 1]).sum())}, x0 "
-                 f"{int((record[:, 2] != capped[:, 2]).sum())}, tiles "
+                 f"_roi_record; {cells}; records the cap would change: "
+                 f"{int(moved.sum())} (y0 {int((record[:, 1] != capped[:, 1]).sum())}, x0 "
+                 f"{int((record[:, 2] != capped[:, 2]).sum())}, ny or nx "
                  f"{int(((record[:, 3:] != capped[:, 3:]).any(1)).sum())})")
             assert np.isfinite(err) and err <= tol * ref, (pool, dtype, err)
             assert int(counts.max()) >= (23 if p == 7 else 12) and bool(moved.any())
@@ -1952,9 +2079,9 @@ def _serving_weights(cfg):
     deltas damped and, with the refine head, its instance logits lifted by
     2.  A trained RPN proposes boxes near its anchors; at the random
     weights' scale the deltas hit the log(1000/16) clamp and most proposals
-    become full-height slivers beyond the kernel's window contract, which
-    it pools from a coarser level by design (roi_align_pallas.py
-    docstring)."""
+    become full-height slivers.  The rate phases keep the damping, so that
+    their times stay comparable across runs; the slivers are driven by the
+    parity phases and "[goldens]"."""
     from articulation3d_tpu_torch.weights import random_state_dict, schema_options
     sd = random_state_dict(0, **schema_options(cfg.model))
     for k in ("weight", "bias"):
@@ -2761,7 +2888,10 @@ def phase_goldens(rac, card) -> dict:
     own probe on the CPU (configs/config.yaml's model at full width, 480x640,
     phase 3's weights, float32, 200 proposals and 20 detections as the
     fixture's meta config), then the port's `compare_goldens` CLI on the
-    card with the gather pooler (the CPU's route) and with the kernel."""
+    card with the gather pooler (the CPU's route) and with the kernel.
+    Then the reference oracle's fixtures through both routes on the card,
+    at the gates of `tests/test_torch_goldens.py::test_fixture_at_tight_gates`
+    (`_oracle_goldens`)."""
     import torch
 
     from articulation3d_tpu_torch import compare_goldens as cli
@@ -2808,7 +2938,116 @@ def phase_goldens(rac, card) -> dict:
     assert r["det_box_max_err"] < 0.01 and r["det_score_max_err"] < 1e-3, r
     assert r["masks_max_err"] < 1e-2 and r["planes_max_err"] < 1e-2 and depth_rel < 1e-4, r
     assert k["det_match_frac"] >= 0.9 and k["det_box_max_err"] < 2.0, k
-    return dict(reports=reports)
+    os.remove(weights)
+    return dict(reports=reports, oracle=_oracle_goldens(rac, card, out))
+
+
+def _oracle_goldens(rac, card, out) -> dict:
+    """The committed oracle fixtures (the reference model's outputs on its
+    biased weights, seed 0, which the port builds bit for bit as
+    `bias_for_detections(random_state_dict(0))`) through the
+    `compare_goldens` CLI on the card, with the kernel route and the gather
+    route: every top-100 proposal matched, at least 99 % of the
+    detections, boxes within 0.01 px, scores within 1e-3, masks and planes
+    within 1e-2.  Then `_card_cpu_departure` on the 480x640 fixture."""
+    import torch
+
+    from articulation3d_tpu_torch import compare_goldens as cli
+    from articulation3d_tpu_torch.weights import bias_for_detections, random_state_dict
+    weights = os.path.join(out, "oracle_biased.pth")
+    sd = bias_for_detections(random_state_dict(0))
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, weights)
+    reports = {}
+    keys = ("proposal_top100_match_frac", "det_match_frac", "det_ref_count",
+            "det_box_max_err", "det_score_max_err", "masks_max_err", "planes_max_err")
+    try:
+        for name in ("golden_oracle_biased_480x640.npz", "golden_oracle_biased_128x160.npz"):
+            path = os.path.join(ROOT, "tests", "fixtures", name)
+            for pooler in ("cuda", "torch"):
+                rac.multilevel_roi_align_cuda.launches = 0
+                t0 = time.perf_counter()
+                r = cli.main(["--goldens", path, "--weights", weights, "--pooler", pooler])
+                wall = time.perf_counter() - t0
+                k1 = rac.multilevel_roi_align_cuda.launches
+                _log(f"[goldens] oracle {name} through the {pooler} route on the card: "
+                     f"{ {key: round(float(r[key]), 6) for key in keys} } ({wall:.2f} s, K1 "
+                     f"{k1}) ({card})")
+                assert (k1 >= 2) if pooler == "cuda" else (k1 == 0), (pooler, k1)
+                assert r["proposal_top100_match_frac"] == 1.0 and r["det_ref_count"] >= 10, r
+                assert r["det_match_frac"] >= 0.99 and r["det_box_max_err"] < 0.01, r
+                assert r["det_score_max_err"] < 1e-3, r
+                assert r["masks_max_err"] < 1e-2 and r["planes_max_err"] < 1e-2, r
+                reports[f"{name}:{pooler}"] = r
+    finally:
+        os.remove(weights)
+    reports["departure"] = _card_cpu_departure(
+        os.path.join(ROOT, "tests", "fixtures", "golden_oracle_biased_480x640.npz"), sd, card)
+    return reports
+
+
+def _card_cpu_departure(path, sd, card) -> dict:
+    """Where the card's float32 model (kernel route) departs from the
+    CPU's on a fixture: per FPN level, max |card - CPU| / max |CPU|; the
+    largest box difference of the matched top-100 proposals and of the
+    matched detections; and each run's top-100 proposal and detection box
+    errors against the fixture.  The card runs three times: with cuDNN's default algorithms
+    (the CLI's run), with `cudnn.deterministic`, and with cuDNN off
+    (PyTorch's own convolutions).  The features must agree within 1e-5 of
+    their largest value (float32 sums in another order); the rest is
+    reported, not gated."""
+    import torch
+
+    from articulation3d_tpu_torch import compare_goldens as cli
+    from articulation3d_tpu_torch.evaluation.goldens import (FEATURE_KEYS, compare_goldens,
+                                                             load_goldens, match_detections,
+                                                             run_probe)
+    from articulation3d_tpu_torch.models.planercnn import build_model
+
+    def boxes(probe):
+        d = probe["detections"]
+        return (probe["proposal_boxes"][0][probe["proposal_valid"][0]][:100],
+                d.boxes[0][d.valid[0]])
+
+    def box_err(a, b, iou):
+        ri, oi = match_detections(a, b, iou_thresh=iou)
+        return float(np.abs(a[ri] - b[oi]).max()) if len(ri) else float("inf")
+
+    g = load_goldens(path)
+    cfg = cli._config_for(g, "cuda")
+    model = build_model(cfg, device="cpu", state_dict=sd)
+    cpu = run_probe(model, g["image"])
+    cpu_err = compare_goldens(g, model)["det_box_max_err"]
+    del model
+    ref_props = g["proposal_boxes"][:100]
+    cpu_prop = box_err(ref_props, boxes(cpu)[0], 0.9)
+    _log(f"[goldens] departure on {os.path.basename(path)}: the CPU against the fixture, "
+         f"top-100 proposals' boxes {cpu_prop:.6f} px, detections' boxes {cpu_err:.6f} px")
+    model = build_model(cfg, device="cuda", state_dict=sd)
+    out = {"cpu_proposal_box_max_err": cpu_prop, "cpu_det_box_max_err": cpu_err}
+    for setting in ("cudnn default", "cudnn deterministic", "cudnn off"):
+        torch.backends.cudnn.deterministic = setting == "cudnn deterministic"
+        torch.backends.cudnn.enabled = setting != "cudnn off"
+        try:
+            probe = run_probe(model, g["image"])
+            fix_err = compare_goldens(g, model)["det_box_max_err"]
+        finally:
+            torch.backends.cudnn.deterministic = False
+            torch.backends.cudnn.enabled = True
+        feat = {k: float(np.abs(probe["features"][k] - cpu["features"][k]).max()
+                         / np.abs(cpu["features"][k]).max()) for k in FEATURE_KEYS}
+        (pc, dc), (pg, dg) = boxes(cpu), boxes(probe)
+        row = dict(feat_rel_err=feat, proposal_box_err=box_err(pc, pg, 0.9),
+                   det_box_err=box_err(dc, dg, 0.7), det_box_max_err=fix_err,
+                   proposal_box_max_err=box_err(ref_props, pg, 0.9))
+        _log(f"[goldens] departure, card ({setting}) against the CPU: features max abs err / "
+             f"max|CPU| { {k: float('%.3e' % v) for k, v in feat.items()} }, top-100 "
+             f"proposals' boxes {row['proposal_box_err']:.6f} px, detections' boxes "
+             f"{row['det_box_err']:.6f} px; the card against the fixture, top-100 "
+             f"proposals' boxes {row['proposal_box_max_err']:.6f} px, detections' boxes "
+             f"{fix_err:.6f} px (gate 0.01) ({card})")
+        assert all(v <= 1e-5 for v in feat.values()), (setting, feat)
+        out[setting] = row
+    return out
 
 
 def _export_extra_alone(rac, card) -> dict:
@@ -2821,7 +3060,11 @@ def _export_extra_alone(rac, card) -> dict:
     return phase_export_extra(pipe, _shifted_clip(), card)
 
 
-PHASES = {"f1": lambda rac, card: phase_f1(rac), "refine-serve": phase_refine_serve,
+PHASES = {"parity": lambda rac, card: (phase_kernel_parity(rac), phase_adjoint_parity(rac)),
+          "oracle-rois": phase_oracle_rois, "f1": lambda rac, card: phase_f1(rac),
+          "train-parity": lambda rac, card: phase_training_parity(
+              rac, {"batch": _train_batch(_stage1_config(), 16)}),
+          "refine-serve": phase_refine_serve,
           "refine-train": phase_refine_train, "drpn": phase_drpn,
           "ddp-1": lambda rac, card: phase_ddp1(rac, card, {"steps_per_s": float("nan")}),
           "ddp-2": lambda rac, card: phase_ranks(card, 2, "ddp-2"),
@@ -2845,8 +3088,9 @@ def _only_phases() -> list:
     if not args:
         return []
     if len(args) != 2 or args[0] != "--only":
-        raise SystemExit("usage: chip_smoke.py [--only f1,refine-serve,refine-train,drpn,"
-                         "ddp-1,ddp-2,ddp-cards,export-extra,goldens]")
+        raise SystemExit("usage: chip_smoke.py [--only parity,oracle-rois,f1,train-parity,"
+                         "refine-serve,refine-train,drpn,ddp-1,ddp-2,ddp-cards,"
+                         "export-extra,goldens]")
     names = args[1].split(",")
     bad = [n for n in names if n not in PHASES]
     if bad:

@@ -1,5 +1,6 @@
-"""The port's uncapped adaptive ROIAlign sampling (ROADMAP.md section 3,
-F1) against the reference.
+"""The port's ROIAlign against the reference: uncapped adaptive sampling
+(ROADMAP.md section 3, F1) and every ROI pooled from detectron2's level
+(F2).
 
 With sampling ratio 0 the reference (torchvision `roi_align`) samples
 ceil(bin) points per bin and axis with no cap; the JAX package caps the
@@ -9,16 +10,17 @@ count at 4, and so did the port.  The port's default is now uncapped:
    `golden_oracle_biased_480x640.npz` (the reference model's outputs on
    `he_state_dict(0)` + `bias_state_dict_for_detections`), run through the
    port's goldens CLI (`python -m articulation3d_tpu_torch.compare_goldens
-   --device cpu`, the weights as a d2 `.pth`) in float32 with the "torch"
-   pooler, at gates far tighter than `tests/test_goldens.py`'s: every
+   --device cpu`, the weights as a d2 `.pth`) in float32 with each pooler
+   route, "torch" (the gather) and "cuda" (the kernels' plain versions,
+   which the card's kernels are held equal to), at gates far tighter than
+   `tests/test_goldens.py`'s: every
    top-100 proposal matched (IoU >= 0.9), at least 99 % of the detections
    above 0.05 matched (IoU >= 0.7, the harness's rule), boxes within 0.01
    px, masks and planes within 1e-2, scores within 1e-3.  (Measured with the cap lifted: 100/100,
    0.0031 px, 7.8e-4, 1.8e-4, 1.2e-5 at 480x640; with the cap the port
-   matched 82/100 with a box 7.92 px off.)  The kernel route's plain
-   version pools some ROIs from the bumped level, a recorded departure of
-   the reference design (ROADMAP.md section 3, PR 1), so these gates hold
-   the "torch" route.
+   matched 82/100 with a box 7.92 px off.)  The port's own build of those
+   weights (`weights.bias_for_detections(random_state_dict(0))`, which the
+   card's smoke run loads) equals the oracle's bit for bit.
 2. The uncapped op equals the numpy reference `roi_align_np` on ROIs that
    need 5 to 23 samples per bin, at one level, within 1e-4 x max |ref|:
    the port places its samples in float32, where a coordinate near 160
@@ -26,9 +28,10 @@ count at 4, and so did the port.  The port's default is now uncapped:
    (measured 1.2e-5 x max).
 3. For those ROIs, `_roi_record` (the twin of the kernels' prologue)
    equals the record of the plain weights (`_prepare`) integer for
-   integer, the extra samples move some ROIs' window origin, tile count
-   or level bump away from the capped record's, and every row of the
-   plain weights averages the ROI's own count of samples.
+   integer, the extra samples move some ROIs' first cell or cell count
+   away from the capped record's (never the level, which is the area's),
+   and every row of the plain weights averages the ROI's own count of
+   samples.
 """
 
 import os
@@ -40,6 +43,7 @@ import torch
 from articulation3d_tpu_torch import compare_goldens as cli
 from articulation3d_tpu_torch.ops import roi_align_cuda as rac
 from articulation3d_tpu_torch.ops.roi_align import multilevel_roi_align, sample_counts
+from articulation3d_tpu_torch.weights import bias_for_detections, random_state_dict
 from reference_impls import roi_align_np
 from torch_oracle import bias_state_dict_for_detections, he_state_dict
 
@@ -59,14 +63,16 @@ def biased_weights_file(tmp_path_factory):
     os.remove(path)
 
 
-@pytest.mark.parametrize("name", ["golden_oracle_biased_128x160.npz",
-                                  "golden_oracle_biased_480x640.npz"])
-def test_fixture_at_tight_gates(name, biased_weights_file, capsys):
+@pytest.mark.parametrize("name,pooler", [
+    pytest.param(name, pooler, id=name if pooler == "torch" else f"{name}-{pooler}")
+    for name in ("golden_oracle_biased_128x160.npz", "golden_oracle_biased_480x640.npz")
+    for pooler in ("torch", "cuda")])
+def test_fixture_at_tight_gates(name, pooler, biased_weights_file, capsys):
     path = os.path.join(FIXTURES, name)
     g = np.load(path)
     assert int(g["meta_weights_seed"]) == 0 and int(g["meta_bias"]) == 1
     report = cli.main(["--goldens", path, "--weights", biased_weights_file,
-                       "--device", "cpu"])
+                       "--pooler", pooler, "--device", "cpu"])
     assert "det_match_frac" in capsys.readouterr().out
     assert report["proposal_top100_match_frac"] == 1.0
     assert report["det_ref_count"] >= 10
@@ -75,6 +81,17 @@ def test_fixture_at_tight_gates(name, biased_weights_file, capsys):
     assert report["det_score_max_err"] < 1e-3
     assert report["masks_max_err"] < 1e-2
     assert report["planes_max_err"] < 1e-2
+
+
+def test_port_biased_weights_equal_oracle():
+    """The port's own build of the fixtures' weights (what `chip_smoke.py`
+    loads on the card) equals the oracle's, key for key and bit for bit."""
+    want = bias_state_dict_for_detections(he_state_dict(0))
+    got = bias_for_detections(random_state_dict(0))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert np.array_equal(got[k], want[k]), k
 
 
 def _many_sample_boxes():
@@ -111,8 +128,8 @@ def test_uncapped_op_equals_reference_numpy(p, aligned):
 
 
 def test_uncapped_plain_kernel_route_equals_gather_on_the_door():
-    """The door pools from p3 inside the window: the kernel route's plain
-    version and the gather pooler agree uncapped (7 samples per bin)."""
+    """The door pools from its level p3: the kernel route's plain version
+    and the gather pooler agree uncapped (7 samples per bin)."""
     rs = np.random.RandomState(2)
     feats = [rs.randn(*s).astype(np.float32) for s in SHAPES]
     door = np.asarray([[[100.0, 50.0, 220.0, 410.0]]], np.float32)
@@ -145,12 +162,10 @@ def test_uncapped_record_equals_plain_weights(p, sr, aligned):
     capped = rac._roi_record(SHAPES, tb, adaptive_cap=4, **kw)
     moved = (record != capped).any(dim=1)
     assert int(moved.sum()) >= 3
-    if p == 7:   # some window origins move, as do level bumps of the 14x14 pools
-        assert bool((record[:, 1] != capped[:, 1]).any())
-    else:
-        assert bool((record[:, 0] != capped[:, 0]).any())
+    # the level is the area's; the samples move first cells and counts
+    assert bool((record[:, 0] == capped[:, 0]).all())
+    assert bool((record[:, 1:3] != capped[:, 1:3]).any())
     # each output row of the plain weights averages the ROI's own (uncapped)
     # count of in-map samples: for boxes on the image it sums to 1
-    ry, rx = rac._predicated_weights(pr)
-    for wts in (ry, rx):
+    for wts in (pr["ry"], pr["rx"]):
         np.testing.assert_allclose(wts.sum(dim=2).numpy(), 1.0, rtol=0, atol=1e-5)

@@ -6,8 +6,12 @@
     groups, valid masks), within 1e-4 rtol and atol (float32 sums in
     another order, the tolerance those tests hold the kernel to);
   * it equals the JAX corner-scatter adjoint `multilevel_roi_align_adjoint`
-    at the kernel's own levels (`pallas_level_idx`) on a 480x640 pyramid
-    with the 5:1 set and the 9:1 bumped set, within 1e-4 rtol and atol;
+    at detectron2's levels on a 480x640 pyramid with the 5:1 set, the 9:1
+    set, whose wide sliver the JAX Pallas kernel pools (and scatters) from
+    p3, and p2 slivers up to 640 px, within 1e-4 rtol and atol;
+  * uncapped (the port's default), it equals the autograd of the port's
+    gather `ops/roi_align.py::multilevel_roi_align` on those sets within
+    1e-4 x max|grad|;
   * forward and adjoint are a transpose pair: <K1(F), G> = <F, K2(G)>,
     summed in float64, within 1e-6 relative (float32 products);
   * K3 (`multilevel_roi_align_train`, impl "cuda", plain versions on the
@@ -36,9 +40,11 @@ import jax.numpy as jnp
 import torch
 
 from articulation3d_tpu.ops import roi_align_pallas as jpal
-from articulation3d_tpu.ops.roi_align import multilevel_roi_align_adjoint
+from articulation3d_tpu.ops.roi_align import (assign_boxes_to_levels,
+                                              multilevel_roi_align_adjoint)
 
 from articulation3d_tpu_torch.ops import roi_align_cuda as rac
+from articulation3d_tpu_torch.ops.roi_align import multilevel_roi_align
 
 STRIDES = (4, 8, 16, 32)
 KW7 = dict(strides=STRIDES, output_size=7, sampling_ratio=0, aligned=True)
@@ -58,7 +64,8 @@ def _boxes(rs, b=2, n=6):
 
 
 def _adversarial_boxes():
-    """The bench's aspect5 set and two 9:1 slivers that bump p2 -> p3."""
+    """The bench's aspect5 set and two 9:1 slivers (the wide one at p2
+    overflows the JAX Pallas kernel's window)."""
     adv = []
     for max_sqrt_area in (112.0, 224.0, 448.0):
         s = max_sqrt_area * 0.99
@@ -72,6 +79,12 @@ def _adversarial_boxes():
     nine = np.asarray([[10.0, 200.0, 344.0, 237.0], [200.0, 10.0, 237.0, 444.0]],
                       np.float32)
     return np.concatenate([adv, nine])[None]
+
+
+# p2 slivers up to the full 640-px width (23 samples per bin at 7x7)
+SLIVERS = np.asarray([[[0.0, 100.0, 640.0, 112.0], [5.0, 30.0, 637.0, 40.0],
+                       [300.0, 0.0, 310.0, 480.0], [20.0, 200.0, 500.0, 215.0]]],
+                     np.float32)
 
 
 def _t(a):
@@ -150,19 +163,41 @@ def test_plain_adjoint_matches_xla_adjoint_with_bumped_levels(p, sr, aligned):
     rs = np.random.RandomState(3)
     feats = _pyramid(rs, b=1, c=4, shapes=((120, 160), (60, 80), (30, 40), (15, 20)))
     shapes = [f.shape for f in feats]
-    boxes = np.concatenate([_adversarial_boxes(), _boxes(rs, b=1, n=10) * 2], 1)
+    boxes = np.concatenate([_adversarial_boxes(), _boxes(rs, b=1, n=10) * 2, SLIVERS], 1)
     n = boxes.shape[1]
     kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
     g = rs.randn(1, n, p, p, 4).astype(np.float32)
-    lvl = jpal.pallas_level_idx(jnp.asarray(boxes[0]), n_levels=4, **kw)
-    if (p, sr) == (7, 0):   # the 9:1 slivers pool from the bumped level p3
-        assert np.asarray(lvl)[n - 12:n - 10].tolist() == [1, 1]
+    lvl = assign_boxes_to_levels(jnp.asarray(boxes[0])) - 2
+    assert np.asarray(lvl)[12:14].tolist() == [0, 1]
+    assert (np.asarray(lvl)[n - 4:] == 0).all()
+    if (p, sr) == (7, 0):   # the Pallas kernel takes the wide one from p3
+        bumped = jpal.pallas_level_idx(jnp.asarray(boxes[0]), n_levels=4, **kw)
+        assert np.asarray(bumped)[12:14].tolist() == [1, 1]
     want = multilevel_roi_align_adjoint(jnp.asarray(g[0]), jnp.asarray(boxes[0]),
                                         [s[1:] for s in shapes], chunk=32,
                                         level_idx=lvl, **kw)
     got = _plain_adjoint(g, shapes, boxes, **kw)
     for a, w in zip(got, want):
         np.testing.assert_allclose(a[0], np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("p,sr,aligned", [(7, 0, True), (14, 2, False), (14, 0, False)])
+def test_plain_adjoint_equals_gather_autograd(p, sr, aligned):
+    rs = np.random.RandomState(6)
+    feats = _pyramid(rs, b=1, c=4, shapes=((120, 160), (60, 80), (30, 40), (15, 20)))
+    shapes = [f.shape for f in feats]
+    boxes = np.concatenate([_adversarial_boxes(), SLIVERS, _boxes(rs, b=1, n=10) * 2], 1)
+    kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
+    g = rs.randn(1, boxes.shape[1], p, p, 4).astype(np.float32)
+    fs = [_t(f[0]).requires_grad_() for f in feats]
+    out = multilevel_roi_align(fs, _t(boxes[0]), chunk=8, **kw)
+    want = torch.autograd.grad(out, fs, grad_outputs=_t(g[0]))
+    pr = rac._prepare(shapes, _t(boxes), **kw)
+    got = rac.multilevel_roi_align_adjoint_separable(_t(g), shapes, pr)
+    scale = max(float(w.abs().max()) for w in want)
+    assert float(want[0].abs().max()) > 0
+    for a, w in zip(got, want):
+        assert float((a[0] - w).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("p,sr,aligned", [(7, 0, True), (14, 2, False)])
@@ -256,7 +291,7 @@ def test_adjoint_wrapper_takes_plain_version_on_cpu():
 
 def test_k3_saves_the_compact_record(interp):
     """K3 keeps boxes, valid and the (T, 5) int32 record for its backward,
-    not the (T, P, 64) and (T, P, 80) weights, and still matches JAX's
+    not the (T, P, ny) and (T, P, nx) weights, and still matches JAX's
     interpret-mode `_train_pool` in value and feature gradients."""
     feats = [_t(f).requires_grad_() for f in interp["feats"]]
     boxes, valid = _t(interp["boxes"]), _t(interp["valid"])
