@@ -38,8 +38,9 @@ class ResNetConfig:
     width_per_group: int = 64
     freeze_at: int = 2
     out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
-    # training-memory and TPU-layout options of the JAX package; the port's
-    # stem is always the plain 7x7/s2 conv, which computes the same function
+    # recompute each Bottleneck's interior on the backward pass
+    # (`models/resnet.py`); the space-to-depth stem is the JAX package's TPU
+    # layout: the port's stem is the plain 7x7/s2 conv, the same function
     remat: bool = False
     space_to_depth_stem: bool = False
 
@@ -172,7 +173,10 @@ class SolverConfig:
     clip_gradients: bool = False
     clip_value: float = 1.0
     reference_world_size: int = 0
+    # "bfloat16": the W > 1 step syncs gradients through
+    # `parallel.dist.bf16_grad_sync_hook`; anything else syncs in float32
     grad_sync_dtype: str = "float32"
+    # the JAX trainer's k steps per TPU dispatch; the port steps one at a time
     steps_per_dispatch: int = 1
 
 

@@ -40,17 +40,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     the few cells of the coarse lanes: there a 1e-6 change of the input
     moves the head's gradients by 1e-3 of their size (ROADMAP.md section 3).
 
-    Under a process group the batch statistics are the global batch's, as
-    under JAX's mesh step: the sums and counts are all-reduced for the
-    mean, then the squared deviations for the variance, both through a
-    differentiable all-reduce (`parallel.dist.all_reduce_sum`)."""
+    The batch statistics are this rank's rows' (JAX's sharded step, where
+    `nn.BatchNorm` has no `axis_name`), or with `over_ranks` the global
+    batch's (JAX's `make_train_step` over a mesh): then the sums and counts
+    are all-reduced for the mean, then the squared deviations for the
+    variance, both through a differentiable all-reduce
+    (`parallel.dist.all_reduce_sum`)."""
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                over_ranks: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         xf = x.to(torch.float32)
-        if process_count() == 1:
+        if not over_ranks or process_count() == 1:
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.var(dim=(0, 2, 3), unbiased=False)
         else:
@@ -87,32 +90,32 @@ class DepthHead(nn.Module):
                 BatchNorm2d(cout, eps=1e-3, momentum=0.01)))
         self.depth_pred = nn.Conv2d(64, 1, 3, padding=1)
 
-    def _deconv(self, i: int, x: torch.Tensor, train: bool,
+    def _deconv(self, i: int, x: torch.Tensor, train: bool, over_ranks: bool,
                 target_hw=None) -> torch.Tensor:
         up, conv, bn = getattr(self, f"deconv{i}")
         x = up(x)
         if target_hw is not None and tuple(x.shape[2:]) != tuple(target_hw):
             # odd pyramid sizes leave the 2x upsample off the skip's grid
             x = _resize(x, target_hw)
-        return F.relu(bn(conv(x).to(torch.float32), train))
+        return F.relu(bn(conv(x).to(torch.float32), train, over_ranks))
 
-    def forward(self, features: Dict[str, torch.Tensor],
-                train: bool = False) -> torch.Tensor:
+    def forward(self, features: Dict[str, torch.Tensor], train: bool = False,
+                over_ranks: bool = False) -> torch.Tensor:
         """features: p2..p6 NCHW -> (B, output_height, output_width) float32.
-        `train=True` runs the BatchNorms on batch statistics and updates the
-        stored ones."""
+        `train=True` runs the BatchNorms on batch statistics (with
+        `over_ranks`, the global batch's) and updates the stored ones."""
         lanes = {}
         for i, name in enumerate(("p6", "p5", "p4", "p3", "p2")):
             conv, bn = getattr(self, f"conv{i + 1}")
-            lanes[name] = F.leaky_relu(bn(conv(features[name]).to(torch.float32), train),
-                                       0.01)
+            lanes[name] = F.leaky_relu(
+                bn(conv(features[name]).to(torch.float32), train, over_ranks), 0.01)
         hw = lambda n: features[n].shape[2:]
-        x = self._deconv(1, lanes["p6"], train)
+        x = self._deconv(1, lanes["p6"], train, over_ranks)
         x = _resize(x, hw("p5"))
-        x = self._deconv(2, torch.cat([lanes["p5"], x], 1), train, hw("p4"))
-        x = self._deconv(3, torch.cat([lanes["p4"], x], 1), train, hw("p3"))
-        x = self._deconv(4, torch.cat([lanes["p3"], x], 1), train, hw("p2"))
-        x = self._deconv(5, torch.cat([lanes["p2"], x], 1), train)
+        x = self._deconv(2, torch.cat([lanes["p5"], x], 1), train, over_ranks, hw("p4"))
+        x = self._deconv(3, torch.cat([lanes["p4"], x], 1), train, over_ranks, hw("p3"))
+        x = self._deconv(4, torch.cat([lanes["p3"], x], 1), train, over_ranks, hw("p2"))
+        x = self._deconv(5, torch.cat([lanes["p2"], x], 1), train, over_ranks)
         with torch.autocast(x.device.type, enabled=False):
             x = self.depth_pred(x.to(torch.float32))
         x = _resize(x, (self.cfg.output_height, self.cfg.output_width))

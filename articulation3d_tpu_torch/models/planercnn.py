@@ -305,22 +305,24 @@ class PlaneRCNN(nn.Module):
                 "plane_params": torch.stack([o[1] for o in outs]),
                 "soft_masks": soft, "valid": valid}
 
-    def forward(self, images: torch.Tensor, *train_args) -> Any:
+    def forward(self, images: torch.Tensor, *train_args, **train_kw) -> Any:
         """`inference(images)`; with the training arguments (gt_boxes,
-        gt_classes, gt_valid, generators) `train_forward`, the call that
-        DistributedDataParallel wraps (`train/train_step.py`)."""
+        gt_classes, gt_valid, generators[, over_ranks]) `train_forward`, the
+        call that DistributedDataParallel wraps (`train/train_step.py`)."""
         if train_args:
-            return self.train_forward(images, *train_args)
+            return self.train_forward(images, *train_args, **train_kw)
         return self.inference(images)
 
     # ------------------------------------------------------------------ #
     def train_forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
                       gt_classes: torch.Tensor, gt_valid: torch.Tensor,
-                      generators: Sequence[torch.Generator]):
+                      generators: Sequence[torch.Generator], over_ranks: bool = False):
         """Training forward: trunk -> RPN -> proposal sampling -> heads.
 
         images: preprocessed (B, H, W, 3); gt_* padded (B, G, ...);
-        generators: one per image (`train.targets.per_image_keys`).
+        generators: one per image (`train.targets.per_image_keys`);
+        over_ranks: the depth head's train-mode BatchNorm takes the global
+        batch's statistics (`train/train_step.py`), else this rank's.
         Returns (outputs for `train.targets.detection_losses` and
         `rpn_losses`, SampledROIs).  Frozen heads are not run; with
         "backbone" frozen the features are detached, so no gradient reaches
@@ -377,7 +379,8 @@ class PlaneRCNN(nn.Module):
                     outputs["tran_pred"] = tran.reshape(b, s, -1)
         if mcfg.depth_on and trains("depth_head"):
             with ac():
-                outputs["depth_pred"] = self.depth_head(feats, train=True).to(torch.float32)
+                outputs["depth_pred"] = self.depth_head(
+                    feats, train=True, over_ranks=over_ranks).to(torch.float32)
         if self._refines():
             outputs["refine"] = self._refine_cascade(images, feats, roi_feats, roi_boxes,
                                                      rois.is_sampled, outputs)

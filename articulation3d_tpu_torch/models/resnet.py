@@ -6,6 +6,12 @@ Counterpart of `articulation3d_tpu/models/resnet.py`, as detectron2's
 FrozenBN as the conv's `norm` child).  NCHW throughout (cuDNN's layout).
 The stem is the plain 7x7/s2 conv: the JAX package's space-to-depth stem
 computes the same function for the TPU's matrix unit.
+
+`cfg.remat` (JAX `nn.remat(Bottleneck)`): in a training forward with
+grad enabled, each Bottleneck of res2-res5 that takes a gradient runs
+through `torch.utils.checkpoint`, so only the blocks' inputs and outputs
+stay live and each block's interior is recomputed on the backward pass.
+Inference and frozen blocks run as without it.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ResNetConfig
 
@@ -113,11 +120,22 @@ class ResNet(nn.Module):
             for prm in stage.parameters():
                 prm.requires_grad_(False)
 
+    def _stage(self, stage: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        if not (self.cfg.remat and self.training and torch.is_grad_enabled()):
+            return stage(x)
+        for block in stage:
+            if x.requires_grad or any(p.requires_grad for p in block.parameters()):
+                # the blocks draw no random numbers: no RNG state to keep
+                x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x)
+        return x
+
     def forward(self, x):
         x = self.stem(x)
         outputs = {}
         for i in range(2, 6):
-            x = getattr(self, f"res{i}")(x)
+            x = self._stage(getattr(self, f"res{i}"), x)
             if f"res{i}" in self.cfg.out_features:
                 outputs[f"res{i}"] = x
         return outputs

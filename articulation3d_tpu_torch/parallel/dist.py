@@ -134,3 +134,38 @@ def global_count(x: torch.Tensor) -> torch.Tensor:
     out = x.detach().clone()
     dist.all_reduce(out)
     return out
+
+
+def mean_over_ranks(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The ranks' mean of each float32 tensor, in one all-reduce of their
+    concatenation: the sum, then over W, as JAX's `psum(flat) / n_dev`
+    (the tensors themselves without a group)."""
+    if process_count() == 1:
+        return list(tensors)
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat)
+    flat = flat / torch.tensor(float(process_count()), device=flat.device)
+    return [v.reshape(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]),
+                                               tensors)]
+
+
+def bf16_grad_sync_hook(process_group, bucket) -> torch.futures.Future:
+    """DDP communication hook of `solver.grad_sync_dtype: bfloat16` (the
+    `Trainer` registers it; any other value keeps DDP's float32 mean), in the
+    order of JAX's sharded step (`train_step.py:288-302`): the bucket over
+    W in float32, cast to bfloat16, summed over the ranks in bfloat16, and
+    cast back to float32.  (torch's `bf16_compress_hook` casts first and
+    divides in bfloat16, which rounds differently where W is not a power of
+    two.)  The divisor is a tensor on the bucket's device: a CUDA division
+    by a Python scalar multiplies by its float32 reciprocal instead."""
+    group = process_group if process_group is not None else dist.group.WORLD
+    buf = bucket.buffer()
+    world = torch.tensor(float(dist.get_world_size(group)), device=buf.device)
+    half = (buf / world).to(torch.bfloat16)
+    fut = dist.all_reduce(half, group=group, async_op=True).get_future()
+
+    def unpack(f):
+        buf.copy_(f.value()[0])
+        return buf
+
+    return fut.then(unpack)

@@ -21,10 +21,13 @@ boxes (B, G, 4) XYXY pixels, classes (B, G), valid (B, G), masks
 (B, G, H, W), planes (B, G, 3), rot_axis / tran_axis (B, G, 4) as
 [sin, cos, offset, valid], depth (B, H_d, W_d).
 
-Under a process group each rank holds a contiguous share of the batch,
-and every normaliser that counts over the batch is the global count
-(`parallel.dist.global_count`), so a rank's losses are its share of the
-global batch's (`train_step.py`).
+Under a process group each rank holds a contiguous share of the batch.
+Every normaliser that counts over the batch (sampled and foreground ROIs,
+valid axis rows, valid depth pixels, the RPN's images) counts this rank's
+rows, as JAX's sharded step does, or with `over_ranks` the global batch's
+(`parallel.dist.global_count`), so that a rank's losses are its share of
+the global batch's, as under JAX's `make_train_step` over a mesh
+(`train_step.py` holds both steps).
 
 Randomness: each image draws from its own `torch.Generator`
 (`per_image_keys`), and every draw goes through `_uniform`; random
@@ -136,9 +139,10 @@ def _bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor
 
 
 def rpn_losses(rpn_raw: Dict, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
-               generators: Sequence[torch.Generator],
-               cfg: Config) -> Dict[str, torch.Tensor]:
-    """RPN objectness and anchor regression losses over the batch.
+               generators: Sequence[torch.Generator], cfg: Config,
+               over_ranks: bool = False) -> Dict[str, torch.Tensor]:
+    """RPN objectness and anchor regression losses over the batch (with
+    `over_ranks`, normalised over the global batch's images).
 
     rpn_raw: logits [(B, n_l)], deltas [(B, n_l, 4)], anchors [(n_l, 4)]
     per level (`RPN.forward(training=True)`).
@@ -159,7 +163,8 @@ def rpn_losses(rpn_raw: Dict, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
         tgt = encode_deltas(anchors[None], matched, rcfg.bbox_reg_weights)
 
     # every rank holds the same number of images
-    normalizer = float(rcfg.batch_size_per_image * b * process_count())
+    images = b * process_count() if over_ranks else b
+    normalizer = float(rcfg.batch_size_per_image * images)
     ce = _bce_with_logits(logits, pos.to(torch.float32))
     loss_cls = torch.where(pos | neg, ce, torch.zeros_like(ce)).sum() / normalizer
     reg = smooth_l1_loss(deltas, tgt, rcfg.smooth_l1_beta)
@@ -242,10 +247,12 @@ def crop_gt_masks(gt_masks: torch.Tensor, matched_idx: torch.Tensor,
     return (torch.cat(crops) >= 0.5).to(torch.float32)
 
 
-def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
-                     cfg: Config) -> Dict[str, torch.Tensor]:
+def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict, cfg: Config,
+                     over_ranks: bool = False) -> Dict[str, torch.Tensor]:
     """All ROI-head and depth losses from `PlaneRCNN.train_forward`'s
-    outputs; `gt` holds the padded per-image arrays (module docstring)."""
+    outputs; `gt` holds the padded per-image arrays (module docstring).
+    The normalisers count this rank's rows, or with `over_ranks` the
+    global batch's."""
     mcfg = cfg.model
     losses: Dict[str, torch.Tensor] = {}
     b, s = rois.boxes.shape[:2]
@@ -264,8 +271,9 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
         m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
         return torch.where(m, x, torch.zeros_like(x)).sum()
 
-    num_sampled = global_count(sampled.sum()).clamp(min=1).to(torch.float32)
-    num_fg = global_count(fg.sum()).clamp(min=1).to(torch.float32)
+    count = global_count if over_ranks else (lambda x: x)
+    num_sampled = count(sampled.sum()).clamp(min=1).to(torch.float32)
+    num_fg = count(fg.sum()).clamp(min=1).to(torch.float32)
     nc = mcfg.roi_heads.num_classes
     safe_cls = cls.clamp(0, nc - 1)
     rows = torch.arange(b * s, device=cls.device)
@@ -308,12 +316,12 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
         tran_pred = flat(outputs["tran_pred"]).to(torch.float32)
         rvalid = fg & (rot_gt[:, 3] >= 0.5)
         rl = smooth_l1_loss(rot_pred, rot_gt[:, :3], acfg.smooth_l1_beta)
-        n_r = (global_count(rvalid.sum()) * 3).clamp(min=1).to(torch.float32)
+        n_r = (count(rvalid.sum()) * 3).clamp(min=1).to(torch.float32)
         losses["loss_rot_axis"] = acfg.loss_weight * masked_sum(rl, rvalid) / n_r
         tvalid = fg & (tran_gt[:, 3] >= 0.5)
         tl = smooth_l1_loss(double_angle(tran_pred), double_angle(tran_gt[:, :2]),
                             acfg.smooth_l1_beta)
-        n_t = (global_count(tvalid.sum()) * 2).clamp(min=1).to(torch.float32)
+        n_t = (count(tvalid.sum()) * 2).clamp(min=1).to(torch.float32)
         losses["loss_tran_axis"] = acfg.loss_weight * masked_sum(tl, tvalid) / n_t
 
     if "refine" in outputs:
@@ -330,5 +338,5 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict,
         mask = (gtd > 1e-4).to(torch.float32)
         losses["depth_loss"] = (mcfg.depth_head.loss_weight
                                 * ((pred - gtd).abs() * mask).sum()
-                                / global_count(mask.sum()).clamp(min=1.0))
+                                / count(mask.sum()).clamp(min=1.0))
     return losses

@@ -16,10 +16,13 @@ and async feeder are TPU-client machinery and are not ported.
 Data parallelism (the JAX trainer's mesh, `trainer.py:54-70`): under a
 process group of W > 1 ranks (`parallel.init_distributed`, one process per
 card) the schedule goes through `auto_scale_workers(cfg, W)`, the model is
-wrapped in DistributedDataParallel, and each rank takes its contiguous
-1/W of every global batch of `solver.ims_per_batch` images, in the same
-`RandomState(seed + epoch)` order (`train_step.py` holds the step's
-semantics).  The main process alone writes checkpoints (the unwrapped
+wrapped in DistributedDataParallel, each rank takes its contiguous 1/W of
+every global batch of `solver.ims_per_batch` images, in the same
+`RandomState(seed + epoch)` order, and steps with `sharded_train_step`,
+as JAX's trainer steps with `make_sharded_train_step` (`train_step.py`
+holds the step's semantics; `solver.grad_sync_dtype: bfloat16` registers
+`parallel.dist.bf16_grad_sync_hook`).  The logged losses are the ranks'
+mean, as JAX's are.  The main process alone writes checkpoints (the unwrapped
 module's keys, so they resume at any world size), `metrics.json` and the
 visualisations; every rank runs the evaluation on its share of the images
 with distributed evaluators.  A world of one takes the one-process path.
@@ -41,12 +44,13 @@ from ..config import Config, auto_scale_workers
 from ..data.catalog import get_dataset_dicts, get_metadata
 from ..data.mapper import DetectionLoader, PlaneRCNNMapper, PrefetchLoader
 from ..models.planercnn import PlaneRCNN
+from ..parallel import dist as pdist
 from ..parallel import is_main_process, make_mesh, process_count, process_index, shard_batch
 from ..structures import resolve_device
 from ..weights import load_torch_state_dict, random_state_dict, schema_options, warm_start
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .optimizer import build_optimizer
-from .train_step import to_device, train_step
+from .train_step import sharded_train_step, to_device, train_step
 
 logger = logging.getLogger(__name__)
 
@@ -94,7 +98,8 @@ class Trainer:
     iterator over it serves every `train` call.  Under a process group an
     explicit `loader` yields global batches, of which each rank keeps its
     rows.  `model` is the PlaneRCNN; `step_model` is what the step calls:
-    the model, or its DistributedDataParallel wrapper.
+    the model, or its DistributedDataParallel wrapper; `step_fn` is the step
+    (`train_step`, or `sharded_train_step` at W > 1).
     """
 
     def __init__(self, cfg: Config, loader: Optional[Iterable[Dict]] = None, device=None,
@@ -112,15 +117,18 @@ class Trainer:
         self.model = model.to(self.device).train()
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
         self.step_model = self.model
+        self.step_fn = train_step
         if world > 1:
             # after build_optimizer: DDP syncs only the parameters that
-            # train; the buffers (BatchNorm statistics of global batches)
-            # agree on every rank by construction
+            # train; the step averages the BatchNorm statistics itself
             ids = ([self.device.index if self.device.index is not None
                     else torch.cuda.current_device()]
                    if self.device.type == "cuda" else None)
             self.step_model = DistributedDataParallel(self.model, device_ids=ids,
                                                       broadcast_buffers=False)
+            if cfg.solver.grad_sync_dtype == "bfloat16":    # else DDP's float32 mean
+                self.step_model.register_comm_hook(None, pdist.bf16_grad_sync_hook)
+            self.step_fn = sharded_train_step
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.iter = 0
         self.test_walls: Dict[str, Dict[str, float]] = {}
@@ -177,8 +185,8 @@ class Trainer:
             t_data = time.perf_counter()
             batch = self._next_batch()
             t_step = time.perf_counter()
-            metrics = train_step(self.step_model, self.optimizer, self.scheduler,
-                                 to_device(batch, self.device), self.generator)
+            metrics = self.step_fn(self.step_model, self.optimizer, self.scheduler,
+                                   to_device(batch, self.device), self.generator)
             rec = {k: float(v) for k, v in metrics.items()}   # waits for the step
             rec["data_s"] = t_step - t_data
             rec["wall_s"] = time.perf_counter() - t_step

@@ -116,12 +116,25 @@ non-zero exit):
      wrapped step against their plain versions ("[ddp-pools]");
  14. "[ddp-2]": two processes (`chip_smoke.py --ddp-rank R 2 STORE OUT`)
      on the one card over gloo, each with 8 of a float32 global batch of
-     16, against this process at 16: two stage-1 steps (and the steps/s of
-     10 more), `Trainer.test` with both evaluators distributed over phase
-     9's arti_val and scannet_val, and `VideoPipeline` over a 32-frame val
-     clip; with more than one card, `--only ddp-cards` runs the same with
-     one process per card over NCCL ("[ddp-cards]", never in a whole run);
- 15. "[goldens]": a fixture the port's `save_goldens` writes from its probe
+     16: two stage-1 steps of the `Trainer`'s own step (`sharded_train_step`,
+     JAX's `make_sharded_train_step`) against this process's emulation of
+     it (the mean of the two halves' gradients, each half with its own
+     normalisers), and the steps/s of 10 more; two steps of the
+     global-batch step (`train_step`) against this process at 16; one
+     step with `solver.grad_sync_dtype: bfloat16` whose synced buckets are
+     bit-equal to ((g0/2).bfloat16() + (g1/2).bfloat16()).bfloat16().float()
+     of the ranks' own buckets and differ from the float32 sync, and the
+     steps/s of 10 more; `Trainer.test` with both evaluators distributed
+     over phase 9's arti_val and scannet_val, and `VideoPipeline` over a
+     32-frame val clip, against this process; with more than one card,
+     `--only ddp-cards` runs the same (without the bfloat16 step) with one
+     process per card over NCCL ("[ddp-cards]", never in a whole run);
+ 15. "[remat]": phase 5's cell with `resnet.remat` off and on from the
+     same state, as alternating pairs (off, on, off, on): peak memory,
+     steps/s, the losses and parameters of remat against off beside the
+     two off runs' own spread; K1 and K2 of a remat step against their
+     plain versions ("[remat-pools]");
+ 16. "[goldens]": a fixture the port's `save_goldens` writes from its probe
      on the CPU (configs/config.yaml's model at full width, 480x640, phase
      3's weights, float32, 200 proposals, 20 detections), then the
      `compare_goldens` CLI on the card with the gather pooler and the
@@ -134,12 +147,12 @@ non-zero exit):
      (FPN features per level within 1e-5 of their largest value, proposal
      and detection box differences, with cuDNN's default algorithms,
      deterministic ones and cuDNN off);
- 16. a JSON line of kernel measurements, then the device JSON as the last
+ 17. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
 `python3 chip_smoke.py --only parity,oracle-rois,f1,train-parity,refine-serve,
-refine-train,drpn,ddp-1,ddp-2,ddp-cards,export-extra,goldens` builds the kernels
-and runs just the named phases of 2, 6, 8 and 10-15 (any subset; "parity" is
+refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,export-extra,goldens` builds the
+kernels and runs just the named phases of 2, 6, 8 and 10-16 (any subset; "parity" is
 phase 2's kernel and adjoint parity, "train-parity" phase 6 on phase 5's
 batch; "ddp-2" writes phase 9's dataset if it is missing); it is
 for iterating on those phases, makes no kernel line, and its last line,
@@ -674,16 +687,19 @@ def main() -> int:
 
     # 13-14. data parallelism: DDP over NCCL at one rank, two ranks over gloo
     ddp1 = phase_ddp1(rac, card, train)
-    phase_ranks(card, 2, "ddp-2")
+    ddp2 = phase_ranks(card, 2, "ddp-2")
 
-    # 15. the goldens harness: a CPU-written fixture, the CLI on the card ----
+    # 15. resnet.remat off and on, phase 5's cell ------------------------------
+    remat = phase_remat(rac, card, train)
+
+    # 16. the goldens harness: a CPU-written fixture, the CLI on the card ----
     phase_goldens(rac, card)
 
-    # 16. results --------------------------------------------------------
+    # 17. results --------------------------------------------------------
     max_err = max(_main_path_err(rac, captured), recipe["err"], f1["k1"], rtrain["err"],
-                  drpn["err"], ddp1["err1"])
+                  drpn["err"], ddp1["err1"], remat["err1"])
     k1_new = {"refine_serve": rserve["k1"], "refine_train": rtrain["k1"], "drpn": drpn["k1"],
-              "ddp": ddp1["k1"]}
+              "ddp": ddp1["k1"], "ddp2": ddp2["k1"], "remat": remat["k1"]}
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -712,11 +728,13 @@ def main() -> int:
         "route": "cuda",
         "source": "articulation3d_tpu_torch/csrc/roi_align_adj.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:519",
-        "launches": train["k2"] + recipe["k2"] + rtrain["k2"] + ddp1["k2"],
+        "launches": (train["k2"] + recipe["k2"] + rtrain["k2"] + ddp1["k2"] + ddp2["k2"]
+                     + remat["k2"]),
         "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0,
                              "recipe": recipe["k2"], "refine_serve": 0,
-                             "refine_train": rtrain["k2"], "drpn": 0, "ddp": ddp1["k2"]},
-        "max_abs_err": max(train["adj_err"], f1["k2"], ddp1["err2"]),
+                             "refine_train": rtrain["k2"], "drpn": 0, "ddp": ddp1["k2"],
+                             "ddp2": ddp2["k2"], "remat": remat["k2"]},
+        "max_abs_err": max(train["adj_err"], f1["k2"], ddp1["err2"], remat["err2"]),
         "ms": train["adj_ms"],
         "plain_ms": train["adj_plain_ms"],
         "bound_ms": train["adj_bound_ms"],
@@ -2457,19 +2475,42 @@ def _params_agree(a: dict, b: dict, before: dict, rel: float = 1e-3) -> float:
     return worst
 
 
-def _stage1_trainer(ims: int, **model_kw):
+def _stage1_trainer(ims: int, grad_sync_dtype: str = "float32", **model_kw):
     """Phase 5's trainer (configs/step1_bbox.yaml, damped weights) at a
     global batch of `ims`, and phase 5's synthetic batch of `ims`."""
     from articulation3d_tpu_torch.train.trainer import Trainer
     from articulation3d_tpu_torch.weights import load_d2_state_dict
     cfg = _stage1_config(**model_kw)
     cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, ims_per_batch=ims,
-                                                 checkpoint_period=0))
+                                                 checkpoint_period=0,
+                                                 grad_sync_dtype=grad_sync_dtype))
     batch = _train_batch(cfg, ims)
     trainer = Trainer(cfg, [batch])
     load_d2_state_dict(trainer.model, {k: v for k, v in _train_weights().items()
                                        if k in trainer.model.state_dict()})
     return trainer, batch
+
+
+def _k2_err(rac, item, tag: str, what: str) -> float:
+    """K2 against its plain version on a training step's own box-pool
+    inputs and cotangent (`_record_train_pool`), at 1e-4 x max|plain|."""
+    import torch
+    feats, boxes, kw = item["features"], item["boxes"], item["kw"]
+    g = item["g"].reshape(-1, *item["g"].shape[2:]).contiguous()
+    opts = dict(strides=STRIDES, output_size=kw["output_size"],
+                sampling_ratio=kw["sampling_ratio"], aligned=kw["aligned"])
+    shapes = [f.shape for f in feats]
+    pr = rac._prepare(shapes, boxes, valid=kw["valid"], **opts)
+    _, record = rac._forward_kernel(feats, boxes, kw["valid"], dict(opts, min_level=2))
+    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **opts)
+    want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(float(b.abs().max()) for b in want)
+    _log(f"[{tag}] K2 against the plain version on {what} cotangent "
+         f"({tuple(g.shape)}): err {err:.3e} (tol {1e-4 * scale:.3e})")
+    assert err <= 1e-4 * scale, (err, scale)
+    return err
 
 
 def phase_ddp1(rac, card, phase5) -> dict:
@@ -2532,8 +2573,7 @@ def phase_ddp1(rac, card, phase5) -> dict:
                        for a, b in zip(recs[:2], recs_plain[:2]) for k in b
                        if k not in ("data_s", "wall_s"))
         param_ratio = _params_agree(after_wrapped, after_plain, before, rel=1e-2)
-        rate = lambda rs: len(rs[2:]) / sum(r["wall_s"] for r in rs[2:])
-        sps_ddp, sps_plain = rate(recs), rate(recs_plain)
+        sps_ddp, sps_plain = _rate(recs), _rate(recs_plain)
         _log(f"[ddp-1] NCCL group of 1, configs/step1_bbox.yaml at ims 16 (phase 5's "
              f"weights and batch, {wrapped.cfg.model.dtype} trunk), DistributedDataParallel "
              f"against the unwrapped step from the same state: two steps' losses within "
@@ -2545,22 +2585,7 @@ def phase_ddp1(rac, card, phase5) -> dict:
              f"steps/s; K1 {k1}, K2 {k2} over 14 wrapped steps ({card})")
         assert loss_err <= 1e-4 and param_ratio <= 1.0, (loss_err, param_ratio)
         err1 = _main_path_err(rac, pools.calls, tag="ddp-pools")
-        item = store_pool[0]
-        feats, boxes, kw = item["features"], item["boxes"], item["kw"]
-        g = item["g"].reshape(-1, *item["g"].shape[2:]).contiguous()
-        opts = dict(strides=STRIDES, output_size=kw["output_size"],
-                    sampling_ratio=kw["sampling_ratio"], aligned=kw["aligned"])
-        shapes = [f.shape for f in feats]
-        pr = rac._prepare(shapes, boxes, valid=kw["valid"], **opts)
-        _, record = rac._forward_kernel(feats, boxes, kw["valid"], dict(opts, min_level=2))
-        got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **opts)
-        want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
-        torch.cuda.synchronize()
-        err2 = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        scale = max(float(b.abs().max()) for b in want)
-        _log(f"[ddp-pools] K2 against the plain version on the wrapped step's cotangent "
-             f"({tuple(g.shape)}): err {err2:.3e} (tol {1e-4 * scale:.3e})")
-        assert err2 <= 1e-4 * scale, (err2, scale)
+        err2 = _k2_err(rac, store_pool[0], "ddp-pools", "the wrapped step's")
     finally:
         dist.destroy_process_group()
         if os.path.exists(store):
@@ -2569,6 +2594,84 @@ def phase_ddp1(rac, card, phase5) -> dict:
     torch.cuda.empty_cache()
     return dict(k1=k1, k2=k2, err1=err1, err2=err2, steps_per_s=sps_ddp,
                 plain_steps_per_s=sps_plain, param_ratio=param_ratio, spread=spread)
+
+
+def _tensor_gap(a: dict, b: dict) -> float:
+    """The largest |a - b| of the parameter samples over each tensor's
+    largest |b|."""
+    return max(float(np.abs(a[n] - b[n]).max()) / max(float(np.abs(b[n]).max()), 1e-30)
+               for n in b)
+
+
+def phase_remat(rac, card, phase5) -> dict:
+    """"[remat]": phase 5's cell (configs/step1_bbox.yaml, ims 16, 480x640,
+    full width, bf16 trunk) with `resnet.remat` off and on from the same
+    state, as alternating pairs (off, on, off, on): the first two steps'
+    losses and the parameters after them, the peak memory of 12 steps and
+    the steps/s of the last 10; then K1 and K2 of a remat step against
+    their plain versions on its own inputs ("[remat-pools]").  The two
+    off runs give the card's own spread between runs of one program
+    (cuDNN's weight gradients and K2's atomics sum in varying orders)."""
+    import torch
+
+    from articulation3d_tpu_torch.models import planercnn as pmod
+
+    base = _stage1_config().model.resnet
+    runs = []
+    rac.multilevel_roi_align_cuda.launches = 0
+    rac.multilevel_roi_align_adjoint_cuda.launches = 0
+    for remat in (False, True, False, True):
+        trainer, _ = _stage1_trainer(16, resnet=dataclasses.replace(base, remat=remat))
+        assert trainer.model.backbone.bottom_up.cfg.remat == remat
+        before = _param_samples(trainer.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        recs = trainer.train(2)
+        after = _param_samples(trainer.model)
+        recs += trainer.train(12)
+        torch.cuda.synchronize()
+        runs.append(dict(remat=remat, before=before, after=after, records=_stage_records(recs),
+                         peak=torch.cuda.max_memory_allocated(), steps_per_s=_rate(recs)))
+        if remat and len(runs) == 4:
+            pools = _record_pools(1)
+            store_pool = []
+            orig = _record_train_pool(pmod, store_pool)
+            try:
+                trainer.train(trainer.iter + 1)
+            finally:
+                pools.restore()
+                pmod.multilevel_roi_align_train = orig
+        del trainer
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    k1 = rac.multilevel_roi_align_cuda.launches
+    k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+    off, on, off2 = runs[0], runs[1], runs[2]
+    assert all(np.array_equal(r["before"][n], off["before"][n]) for r in runs[1:]
+               for n in off["before"])
+    loss_gap = lambda a, b: max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                                for x, y in zip(a["records"][:2], b["records"][:2]) for k in y)
+    gap, spread = _tensor_gap(on["after"], off["after"]), _tensor_gap(off2["after"], off["after"])
+    ratio = _params_agree(on["after"], off["after"], off["before"], rel=1e-2)
+    peaks = [f"{r['peak'] / 2**30:.3f}" for r in runs]
+    rates = [f"{r['steps_per_s']:.4f}" for r in runs]
+    _log(f"[remat] configs/step1_bbox.yaml at ims 16, 480x640, {_stage1_config().model.dtype} "
+         f"trunk (phase 5's weights and batch), resnet.remat off / on / off / on from the same "
+         f"state: max_memory_allocated {peaks} GiB, 10 timed steps {rates} steps/s (phase 5 "
+         f"{phase5['steps_per_s']:.4f}); remat against off after two steps: losses within "
+         f"{loss_gap(on, off):.3e} relative, parameters within {gap:.3e} of each tensor's "
+         f"largest value ({ratio:.4f} of 1e-2 x the change + 1e-6 x the magnitude); the two off "
+         f"runs: losses {loss_gap(off2, off):.3e}, parameters {spread:.3e}; K1 {k1}, K2 {k2} "
+         f"over {4 * 12 + 1} steps ({card})")
+    assert all(np.isfinite(v) for r in runs for rec in r["records"] for v in rec.values())
+    assert ratio <= 1.0 and loss_gap(on, off) <= 1e-4, (ratio, loss_gap(on, off))
+    assert k1 == k2 == 4 * 12 + 1, (k1, k2)
+    err1 = _main_path_err(rac, pools.calls, tag="remat-pools")
+    err2 = _k2_err(rac, store_pool[0], "remat-pools", "the remat step's")
+    del pools, store_pool
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k2=k2, err1=err1, err2=err2, gap=gap, spread=spread,
+                peak=[r["peak"] for r in runs], steps_per_s=[r["steps_per_s"] for r in runs])
 
 
 def _eval_trainer():
@@ -2594,33 +2697,164 @@ def _val_frames():
     return frames
 
 
-def _ranks_payload(distributed: bool) -> dict:
-    """What "[ddp-2]" and "[ddp-cards]" compare, from one process or from
-    each rank: two float32 stage-1 steps at a global batch of 16 (each rank
-    its share) and 10 more timed, the two evaluators through
-    `Trainer.test` and `VideoPipeline` on a val clip."""
+def _stage_records(recs) -> list:
+    return [{k: v for k, v in r.items() if k not in ("data_s", "wall_s")} for r in recs]
+
+
+def _rate(recs) -> float:
+    """Steps/s of the records after the first two."""
+    return len(recs[2:]) / sum(r["wall_s"] for r in recs[2:])
+
+
+def _recording_bf16_hook(store: list):
+    """`parallel.dist.bf16_grad_sync_hook` that also keeps each bucket as
+    this rank had it and as the sync left it."""
+    from articulation3d_tpu_torch.parallel import dist as pdist
+    hook = pdist.bf16_grad_sync_hook
+
+    def recording(group, bucket):
+        local = bucket.buffer().clone()
+
+        def keep(fut):
+            store.append((local, fut.value().clone()))
+            return fut.value()
+
+        return hook(group, bucket).then(keep)
+
+    return recording
+
+
+def _check_bf16_buckets(store: list, world: int) -> dict:
+    """Each recorded bucket's sync against JAX's order, from the ranks' own
+    buckets (two ranks): bit-equal to ((g0/2).bf16 + (g1/2).bf16) in
+    bfloat16; how many values differ from the float32 sync.  Also run by
+    `tests/test_torch_sharded_step.py` on the CPU."""
+    import torch
+    import torch.distributed as dist
+    assert world == 2, world
+    exact, n, off_f32 = True, 0, 0
+    for local, synced in store:
+        both = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(both, local)
+        want = ((both[0] / 2).bfloat16() + (both[1] / 2).bfloat16()).bfloat16().float()
+        exact &= torch.equal(synced, want)
+        n += synced.numel()
+        off_f32 += int((synced != both[0] / 2 + both[1] / 2).sum())
+    return {"buckets": len(store), "values": n, "exact": exact, "off_f32": off_f32}
+
+
+def _emulated_sharded_steps(trainer, batch, steps: int) -> list:
+    """The W = 2 sharded step (`sharded_train_step`) emulated in one
+    process: per step, the gradients of each half of the global batch (the
+    global batch's per-image generators, each half its own losses and
+    normalisers and BatchNorm statistics), their mean, the mean of the two
+    halves' new running statistics, then the clip and the update."""
     import torch
 
+    from articulation3d_tpu_torch.train.targets import per_image_keys
+    from articulation3d_tpu_torch.train.train_step import (_update, compute_losses,
+                                                           running_statistics, to_device)
+    model, dev = trainer.model, trainer.device
+    b = batch["images"].shape[0]
+    halves = [to_device({k: v[h * b // 2:(h + 1) * b // 2] for k, v in batch.items()}, dev)
+              for h in range(2)]
+    params = [p for p in model.parameters() if p.requires_grad]
+    stats = running_statistics(model)
+    recs = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        gens = per_image_keys(trainer.generator, b)
+        old = [s.clone() for s in stats]
+        grads, new_stats, metrics = [], [], []
+        for h, half in enumerate(halves):
+            for s, o in zip(stats, old):
+                s.copy_(o)
+            trainer.optimizer.zero_grad(set_to_none=True)
+            losses = compute_losses(model, half, gens[h * b // 2:(h + 1) * b // 2])
+            total = sum(v.to(torch.float32) for v in losses.values())
+            total.backward()
+            grads.append([p.grad.clone() for p in params])
+            new_stats.append([s.clone() for s in stats])
+            metrics.append({**{k: float(v.detach()) for k, v in losses.items()},
+                            "total_loss": float(total.detach())})
+        with torch.no_grad():
+            for p, g0, g1 in zip(params, *grads):
+                p.grad.copy_(g0 / 2 + g1 / 2)
+            for s, s0, s1 in zip(stats, *new_stats):
+                s.copy_((s0 + s1) / 2)
+        _update(model, trainer.optimizer, trainer.scheduler)
+        trainer.iter += 1
+        recs.append({k: (metrics[0][k] + metrics[1][k]) / 2 for k in metrics[0]})
+        recs[-1]["wall_s"] = time.perf_counter() - t0
+    return recs
+
+
+def _ranks_payload(distributed: bool) -> dict:
+    """What "[ddp-2]" and "[ddp-cards]" compare, from one process or from
+    each rank, on float32 stage-1 steps at a global batch of 16 (each rank
+    its share), then the two evaluators through `Trainer.test` and
+    `VideoPipeline` on a val clip.
+
+    Each rank: two steps of the `Trainer`'s own step (`sharded_train_step`)
+    and 12 more, timed; two steps of the global-batch step (`train_step`,
+    JAX's `make_train_step` over a mesh) from a fresh trainer; one step
+    with `solver.grad_sync_dtype: bfloat16` whose buckets are held to JAX's
+    order (two ranks), and 12 more, timed.  One process: two steps of the emulated
+    sharded step, and two steps of `Trainer` at 16 (the global batch) and
+    12 more, timed."""
+    import torch
+    import torch.distributed as dist
+
     from articulation3d_tpu_torch.ops import roi_align_cuda as rac
+    from articulation3d_tpu_torch.parallel import dist as pdist
+    from articulation3d_tpu_torch.train.train_step import train_step
     from articulation3d_tpu_torch.video.pipeline import VideoPipeline
 
-    trainer, _ = _stage1_trainer(16, dtype="float32")      # parity in float32
-    before = _param_samples(trainer.model)
-    rac.multilevel_roi_align_cuda.launches = 0
-    rac.multilevel_roi_align_adjoint_cuda.launches = 0
-    recs = trainer.train(2)
-    torch.cuda.synchronize()
-    out = {"records": [{k: v for k, v in r.items() if k not in ("data_s", "wall_s")}
-                       for r in recs],
-           "before": before, "after": _param_samples(trainer.model),
-           "wrapped": type(trainer.step_model).__name__,
-           "k1": rac.multilevel_roi_align_cuda.launches,
-           "k2": rac.multilevel_roi_align_adjoint_cuda.launches,
-           "device": str(next(trainer.model.parameters()).device)}
-    timed = trainer.train(14)[2:]
-    out["steps_per_s"] = len(timed) / sum(r["wall_s"] for r in timed)
+    out = {}
+    trainer, batch = _stage1_trainer(16, dtype="float32")      # parity in float32
+    out["before"] = _param_samples(trainer.model)
+    if distributed:
+        out["step_fn"] = trainer.step_fn.__name__
+        rac.multilevel_roi_align_cuda.launches = 0
+        rac.multilevel_roi_align_adjoint_cuda.launches = 0
+        recs = trainer.train(2)
+        torch.cuda.synchronize()
+        out.update(k1=rac.multilevel_roi_align_cuda.launches,
+                   k2=rac.multilevel_roi_align_adjoint_cuda.launches)
+    else:
+        recs = _emulated_sharded_steps(trainer, batch, 2)
+    out["sharded"] = {"records": _stage_records(recs), "after": _param_samples(trainer.model)}
+    if distributed:
+        out["sharded"]["steps_per_s"] = _rate(trainer.train(14))
     del trainer
     torch.cuda.empty_cache()
+
+    trainer, _ = _stage1_trainer(16, dtype="float32")
+    trainer.step_fn = train_step                      # the global-batch step
+    recs = trainer.train(2)
+    out["global"] = {"records": _stage_records(recs), "after": _param_samples(trainer.model),
+                     "wrapped": type(trainer.step_model).__name__}
+    if not distributed:
+        out["global"]["steps_per_s"] = _rate(trainer.train(14))
+    del trainer
+    torch.cuda.empty_cache()
+
+    if distributed and dist.get_world_size() == 2:
+        buckets: list = []
+        hook = pdist.bf16_grad_sync_hook
+        pdist.bf16_grad_sync_hook = _recording_bf16_hook(buckets)
+        try:
+            trainer, _ = _stage1_trainer(16, dtype="float32", grad_sync_dtype="bfloat16")
+        finally:
+            pdist.bf16_grad_sync_hook = hook
+        trainer.train(1)
+        out["bf16"] = _check_bf16_buckets(buckets, dist.get_world_size())
+        del buckets
+        out["bf16"]["steps_per_s"] = _rate(trainer.train(14)[1:])
+        del trainer
+        torch.cuda.empty_cache()
+    out["device"] = str(torch.device("cuda", torch.cuda.current_device()))
+
     ev = _eval_trainer()
     t0 = time.perf_counter()
     out["eval"] = ev.test()
@@ -2738,13 +2972,19 @@ def phase_ranks(card, world: int, tag: str) -> dict:
     register_builtin_datasets(data_root)
     one = _ranks_payload(distributed=False)
 
-    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
-                   for t in ranks for a, b in zip(t["records"], one["records"]) for k in b)
-    param_ratio = max(_params_agree(t["after"], one["after"], one["before"]) for t in ranks)
-    same_replicas = all(np.array_equal(ranks[0]["after"][n], t["after"][n])
-                        for t in ranks[1:] for n in ranks[0]["after"])
-    assert one["wrapped"] == "PlaneRCNN"
-    assert all(t["wrapped"] == "DistributedDataParallel" for t in ranks)
+    def agree(step: str) -> tuple:
+        loss = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for t in ranks
+                   for a, b in zip(t[step]["records"], one[step]["records"]) for k in b)
+        params = max(_params_agree(t[step]["after"], one[step]["after"], one["before"])
+                     for t in ranks)
+        same = all(np.array_equal(ranks[0][step]["after"][n], t[step]["after"][n])
+                   for t in ranks[1:] for n in ranks[0][step]["after"])
+        return loss, params, same
+
+    sharded, global_ = agree("sharded"), agree("global")
+    assert all(t["step_fn"] == "sharded_train_step" for t in ranks)
+    assert one["global"]["wrapped"] == "PlaneRCNN"
+    assert all(t["global"]["wrapped"] == "DistributedDataParallel" for t in ranks)
     assert all(t["eval"] == {name: {} for name in one["eval"]} for t in ranks[1:])
     eval_err = {name: _dicts_agree(ranks[0]["eval"][name], one["eval"][name])
                 for name in one["eval"]}
@@ -2759,15 +2999,33 @@ def phase_ranks(card, world: int, tag: str) -> dict:
     per = 16 // world
     where = ("on the one card" if world > torch.cuda.device_count()
              else f"on cards {[t['device'] for t in ranks]}")
-    _log(f"[{tag}] {world} processes {where} over {ranks[0]['backend']} ({wall:.1f} s of wall "
-         f"for all), configs/step1_bbox.yaml in float32 at a global batch of 16 ({per} per "
-         f"rank) against one process at 16: two steps' losses within {loss_err:.3e} relative "
-         f"(gate 1e-3), parameters after them at {param_ratio:.4f} of the gate (1e-3 x the "
-         f"change + 1e-6 x the magnitude), the replicas equal {same_replicas}; K1 / K2 per "
-         f"rank over the two steps {[(t['k1'], t['k2']) for t in ranks]}; 12 timed steps "
-         f"{ranks[0]['steps_per_s']:.4f} steps/s = {16 * ranks[0]['steps_per_s']:.3f} "
-         f"images/s, one process {one['steps_per_s']:.4f} steps/s = "
-         f"{16 * one['steps_per_s']:.3f} images/s ({card})")
+    head = (f"[{tag}] {world} processes {where} over {ranks[0]['backend']} ({wall:.1f} s of "
+            f"wall for all), configs/step1_bbox.yaml in float32 at a global batch of 16 "
+            f"({per} per rank)")
+    _log(f"{head}: the Trainer's sharded step against this process's emulation of it (the "
+         f"mean of the two halves' gradients): two steps' losses within {sharded[0]:.3e} "
+         f"relative (gate 1e-3), parameters after them at {sharded[1]:.4f} of the gate "
+         f"(1e-3 x the change + 1e-6 x the magnitude), the replicas equal {sharded[2]}; K1 / "
+         f"K2 per rank over the two steps {[(t['k1'], t['k2']) for t in ranks]}; 10 timed "
+         f"steps {ranks[0]['sharded']['steps_per_s']:.4f} steps/s = "
+         f"{16 * ranks[0]['sharded']['steps_per_s']:.3f} images/s ({card})")
+    _log(f"{head}: the global-batch step (train_step) against one process at 16: two steps' "
+         f"losses within {global_[0]:.3e} relative (gate 1e-3), parameters at "
+         f"{global_[1]:.4f} of the gate, the replicas equal {global_[2]}; one process, 10 "
+         f"timed steps {one['global']['steps_per_s']:.4f} steps/s = "
+         f"{16 * one['global']['steps_per_s']:.3f} images/s ({card})")
+    if world == 2:
+        bf = [t["bf16"] for t in ranks]
+        _log(f"{head}: solver.grad_sync_dtype bfloat16: the synced buckets bit-equal to "
+             f"((g0/2).bfloat16() + (g1/2).bfloat16()).bfloat16().float() of the ranks' "
+             f"own buckets {[b['exact'] for b in bf]} ({bf[0]['buckets']} buckets, "
+             f"{bf[0]['values']} values; {[b['off_f32'] for b in bf]} of them differ from the "
+             f"float32 sync); 10 timed steps {bf[0]['steps_per_s']:.4f} steps/s, float32 "
+             f"sync {ranks[0]['sharded']['steps_per_s']:.4f} steps/s ({card})")
+        assert all(b["exact"] and b["off_f32"] > 0 and b["buckets"] > 0 for b in bf), bf
+    for loss_err, param_ratio, same_replicas in (sharded, global_):
+        assert loss_err <= 1e-3 and param_ratio <= 1.0 and same_replicas, (loss_err,
+                                                                            param_ratio)
     _log(f"[{tag}] Trainer.test with distributed evaluators (16 images each, split over the "
          f"ranks) against one process: "
          f"{', '.join(f'{n} max diff {e:.3e}' for n, e in eval_err.items())} (NaN where one "
@@ -2779,12 +3037,11 @@ def phase_ranks(card, world: int, tag: str) -> dict:
          f"depth max err {depth_err:.3e} m; walls ranks "
          f"{['%.2f' % t['pipeline_s'] for t in ranks]} s, one process "
          f"{one['pipeline_s']:.2f} s ({card})")
-    assert loss_err <= 1e-3 and param_ratio <= 1.0 and same_replicas, (loss_err, param_ratio)
     assert all(e <= 1e-6 for e in eval_err.values()), eval_err
     assert n_frames == 32 and same_counts and box_err <= 1e-3, (box_err, same_counts)
     torch.cuda.empty_cache()
-    return dict(loss_err=loss_err, param_ratio=param_ratio, eval_err=eval_err,
-                box_err=box_err, wall=wall)
+    return dict(sharded=sharded, global_=global_, eval_err=eval_err, box_err=box_err,
+                wall=wall, k1=sum(t["k1"] for t in ranks), k2=sum(t["k2"] for t in ranks))
 
 
 def phase_export_extra(pipe, frames, card) -> dict:
@@ -3068,6 +3325,7 @@ PHASES = {"parity": lambda rac, card: (phase_kernel_parity(rac), phase_adjoint_p
           "refine-train": phase_refine_train, "drpn": phase_drpn,
           "ddp-1": lambda rac, card: phase_ddp1(rac, card, {"steps_per_s": float("nan")}),
           "ddp-2": lambda rac, card: phase_ranks(card, 2, "ddp-2"),
+          "remat": lambda rac, card: phase_remat(rac, card, {"steps_per_s": float("nan")}),
           "ddp-cards": lambda rac, card: phase_ranks(card, _cards(), "ddp-cards"),
           "export-extra": _export_extra_alone, "goldens": phase_goldens}
 
@@ -3089,7 +3347,7 @@ def _only_phases() -> list:
         return []
     if len(args) != 2 or args[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only parity,oracle-rois,f1,train-parity,"
-                         "refine-serve,refine-train,drpn,ddp-1,ddp-2,ddp-cards,"
+                         "refine-serve,refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,"
                          "export-extra,goldens]")
     names = args[1].split(",")
     bad = [n for n in names if n not in PHASES]

@@ -10,9 +10,12 @@ evaluators and pipeline) on the CPU, with gloo.
    * `gather_predictions`, `is_main_process` and `process_count`, as
      `tests/test_multihost.py` checks JAX's;
    * the tiny 64x80 stage-1 and stage-3 recipes (`Trainer` with a
-     DistributedDataParallel model, float32) for two steps, each rank
-     taking its contiguous half of a global batch of 4.  Both must equal
-     the port's one-process `Trainer` on the whole batch: each step's
+     DistributedDataParallel model, float32, stepping with the
+     global-batch step `train_step`, JAX's `make_train_step` over a mesh,
+     in place of its own `sharded_train_step`, which
+     `tests/test_torch_sharded_step.py` holds against JAX) for two steps,
+     each rank taking its contiguous half of a global batch of 4.  Both
+     must equal the port's one-process `Trainer` on the whole batch: each step's
      losses within 1e-4 relative, every trainable parameter (a strided
      sample of each tensor) within 1e-3 x the largest change two steps
      make to that tensor, plus 1e-6 x its magnitude, and the depth head's
@@ -211,13 +214,15 @@ def _sample(t: torch.Tensor) -> np.ndarray:
 
 
 def _train_run(stage, out, checkpoint=False):
-    """Two steps of `Trainer` on the global batch (with `checkpoint`, a
-    checkpoint after the second); returns its per-step losses, a sample of
+    """Two steps of `Trainer` with the global-batch step on the global batch
+    (with `checkpoint`, a checkpoint after the second); returns its per-step losses, a sample of
     every trainable parameter before and after, and the depth head's
     statistics."""
+    from articulation3d_tpu_torch.train.train_step import train_step
     from articulation3d_tpu_torch.train.trainer import Trainer
     trainer = Trainer(_train_cfg(stage, out, checkpoint_period=2 if checkpoint else 0),
                       loader=[_global_batch()], device="cpu")
+    trainer.step_fn = train_step          # the global-batch step at any world size
     trainable = {n: p for n, p in trainer.model.named_parameters() if p.requires_grad}
     before = {n: _sample(p) for n, p in trainable.items()}
     records = trainer.train(2)

@@ -6,7 +6,8 @@ than one device (`articulation3d_tpu/train/trainer.py:54-71`): each device
 computes its losses on its own shard, so every loss normaliser and the
 depth head's train-mode BatchNorm statistics are that device's, and the
 trainable gradients, the new running statistics and the metrics are then
-averaged over the devices (DDP's semantics, not the global batch's).
+averaged over the devices (DDP's semantics, not the global batch's).  With
+`solver.grad_sync_dtype: bfloat16` the gradients are averaged in bfloat16.
 
 The JAX side runs that step on a 2-device sub-mesh of the CPU's virtual
 devices (as `tests/test_parallel.py` builds one); the port side is two gloo
@@ -17,11 +18,13 @@ carries over exactly) with JAX's per-image sampling draws injected into the
 port's `targets._uniform`.  The batch makes the ranks' counts differ: rank
 0's images carry 3 GT rows and rank 1's carry 1 (the rest padded), and most
 of rank 1's depth pixels are invalid, so foreground ROIs, valid axis rows
-and valid depth pixels differ between the halves.
+and valid depth pixels differ between the halves.  Cases: stage 3 (the
+normalisers and the depth head's BatchNorm) and stage 1 at float32, and
+stage 1 with the bfloat16 gradient sync.
 
 JAX's depth head runs with flax's two-pass variance
 (`use_fast_variance=False`), as `tests/test_torch_train_stage3.py` runs it
-(ROADMAP.md section 3, PR 2).
+(ROADMAP.md section 3).
 
 Gates, those of `tests/test_torch_train.py::_check_step`'s update
 comparison: each trainable parameter's change within 1e-3 x the largest
@@ -29,7 +32,21 @@ comparison: each trainable parameter's change within 1e-3 x the largest
 train-mode BatchNorm, whose gradient is float32 noise on both sides, within
 2e-6 x lr x the depth head's largest gradient); the metrics within 1e-4
 relative; the depth head's running statistics within 1e-5 relative (1e-7
-absolute).
+absolute).  With the bfloat16 sync each change is held within 2^-6 x the
+largest |JAX change| more.  The bfloat16 hook itself is held exactly on
+the ranks' own buckets: its result is bit-equal to
+((g0/2).bfloat16() + (g1/2).bfloat16()).bfloat16().float() and differs
+from the float32 sync.
+
+The batch's seed (41) is one at which each half, in one process, gives
+the port's gradients within the gate of JAX's at both stages.  With
+random weights the heads and the trunk have ReLU units within float32
+noise of zero: on many batches a relative change of 1e-7 of the pooled
+ROI features (a float32 rounding) moves the port's own mask and plane
+head gradients by 2e-3-6e-3 of their largest value, which no two float32
+programs can agree within, and the seed's halves are well clear of that
+(`test_batch_halves_are_well_conditioned`).  The stage-3 case's largest
+gap is the one-ulp rounding of a depth-head update that the gate allows.
 
 The JAX steps are computed once for the module while the two ranks run
 (spawned once for the module, a `FileStore` rendezvous under the test's tmp
@@ -40,6 +57,7 @@ draw JAX's uniforms.
 
 import os
 import pickle
+import re
 import subprocess
 import sys
 
@@ -53,7 +71,9 @@ H, W = 64, 80
 GLOBAL_BATCH = 4
 WORLD = 2
 LR = 0.002
-CASES = (("step3_plane", "float32"),)
+BATCH_SEED = 41
+STEP_KEY = 11
+CASES = (("step3_plane", "float32"), ("step1_bbox", "float32"), ("step1_bbox", "bfloat16"))
 WORKER_TIMEOUT_S = 420
 RANK_THREADS = 2
 
@@ -81,7 +101,7 @@ def _config_path(stage: str) -> str:
     return os.path.join(ROOT, "configs", f"{stage}.yaml")
 
 
-def _global_batch(seed: int = 0) -> dict:
+def _global_batch(seed: int = BATCH_SEED) -> dict:
     """Four images on the train mapper's wire encodings; images 0-1 (rank
     0's) carry three GT rows, images 2-3 (rank 1's) one, and rank 1's depth
     is valid on a third of its pixels only."""
@@ -147,16 +167,36 @@ def _sample(t: torch.Tensor) -> np.ndarray:
     return flat[::max(1, flat.numel() // 4096)].numpy().copy()
 
 
+def _chip_smoke():
+    """`chip_smoke.py` as a module: the bfloat16 sync's recording hook and
+    its check against JAX's order are the ones "[ddp-2]" runs on the
+    card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
 def _port_case(case, rank: int, keys: np.ndarray, out: str) -> dict:
     """One `Trainer` step of this rank on its half of the global batch."""
     from articulation3d_tpu_torch import config as pcfg
+    from articulation3d_tpu_torch.parallel import dist as pdist
     from articulation3d_tpu_torch.train import optimizer as popt
     from articulation3d_tpu_torch.train import targets as pt
     from articulation3d_tpu_torch.train.trainer import Trainer
     stage, sync = case
     cfg = pcfg.load_config(_config_path(stage),
                            _overrides(stage, sync, os.path.join(out, _case_id(case))))
-    trainer = Trainer(cfg, loader=[_global_batch()], device="cpu")
+    cs = _chip_smoke()
+    buckets: list = []
+    hook = pdist.bf16_grad_sync_hook
+    pdist.bf16_grad_sync_hook = cs._recording_bf16_hook(buckets)
+    try:
+        trainer = Trainer(cfg, loader=[_global_batch()], device="cpu")
+    finally:
+        pdist.bf16_grad_sync_hook = hook
     per = GLOBAL_BATCH // WORLD
     orig = pt._uniform
     pt._uniform = _JaxDraws(keys[rank * per:(rank + 1) * per])
@@ -171,7 +211,9 @@ def _port_case(case, rank: int, keys: np.ndarray, out: str) -> dict:
                       for n, p in trainable},
             "no_decay": sorted(popt._norm_param_names(trainer.model)),
             "stats": _depth_stats(trainer.model),
-            "wrapped": type(trainer.step_model).__name__}
+            "wrapped": type(trainer.step_model).__name__,
+            "step_fn": trainer.step_fn.__name__,
+            "bf16": cs._check_bf16_buckets(buckets, WORLD)}
 
 
 def _worker(rank: int, world: int, store: str, out: str) -> None:
@@ -186,7 +228,7 @@ def _worker(rank: int, world: int, store: str, out: str) -> None:
     trainer_mod.random_state_dict = lambda seed, **kw: sd
     with open(os.path.join(out, "keys.pkl"), "rb") as f:
         keys = pickle.load(f)
-    res = {case: _port_case(case, rank, keys[case], out) for case in CASES}
+    res = {case: _port_case(case, rank, keys, out) for case in CASES}
     barrier()
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
@@ -196,20 +238,21 @@ def _worker(rank: int, world: int, store: str, out: str) -> None:
 # fixtures: the ranks start first and run while JAX computes its steps
 # --------------------------------------------------------------------------- #
 
-STEP_KEY = 11
+def _image_keys() -> np.ndarray:
+    """JAX's per-image keys of the step: split from fold_in(PRNGKey(11),
+    step 0) over the global batch, as `make_sharded_train_step` splits
+    them."""
+    import jax
+    key = jax.random.fold_in(jax.random.PRNGKey(STEP_KEY), 0)
+    return np.asarray(jax.random.split(key, GLOBAL_BATCH))
 
 
 @pytest.fixture(scope="module")
 def started(tmp_path_factory):
-    """The two ranks, started; JAX's per-image keys of each case's step
-    (split from fold_in(PRNGKey(11), step 0) over the global batch, as
-    `make_sharded_train_step` splits them) handed over in `keys.pkl`."""
-    import jax
+    """The two ranks, started, with the keys handed over in `keys.pkl`."""
     out = tmp_path_factory.mktemp("sharded")
-    key = jax.random.fold_in(jax.random.PRNGKey(STEP_KEY), 0)
-    keys = np.asarray(jax.random.split(key, GLOBAL_BATCH))
     with open(out / "keys.pkl", "wb") as f:
-        pickle.dump({case: keys for case in CASES}, f)
+        pickle.dump(_image_keys(), f)
     env = dict(os.environ, OMP_NUM_THREADS=str(RANK_THREADS), PYTHONPATH=os.pathsep.join(
         [ROOT, TESTS, os.environ.get("PYTHONPATH", "")]))
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
@@ -248,6 +291,7 @@ def _jax_case(case, he: dict) -> dict:
 
     stage, sync = case
     jc = jcfg.load_config(_config_path(stage), _overrides(stage, sync))
+    assert jc.solver.grad_sync_dtype == sync
     zeros = _jax_zeros(stage)
     params, batch_stats, _ = port_detectron2_state_dict(he, zeros["params"],
                                                         zeros.get("batch_stats", {}))
@@ -299,20 +343,17 @@ def port_side(started, jax_side):
 # the comparison
 # --------------------------------------------------------------------------- #
 
-_PRE_BN_BIAS = ("depth_head.conv", "depth_head.deconv")
-
-
 def _pre_bn_bias(name: str) -> bool:
     """A conv bias that feeds a train-mode BatchNorm (its gradient is
     analytically zero): `depth_head.conv{i}.0.bias`, `deconv{i}.1.bias`."""
-    import re
     return re.fullmatch(r"depth_head\.(conv\d\.0|deconv\d\.1)\.bias", name) is not None
 
 
-def _update_gaps(he: dict, j: dict, port: dict, rel: float = 1e-3) -> dict:
+def _update_gaps(he: dict, j: dict, port: dict, rel: float, extra: float = 0.0) -> dict:
     """Per trainable parameter, the largest |port change - JAX change| over
-    its gate; > 1 fails.  JAX's change has its decay of the parameters the
-    port does not decay (norm parameters) taken out."""
+    its gate (rel x max|JAX change| + one ulp, + extra x max|JAX change|);
+    > 1 fails.  JAX's change has its decay of the parameters the port does
+    not decay (norm parameters) taken out."""
     no_decay = set(port["no_decay"])
     deltas = {}
     for name, after in port["after"].items():
@@ -329,9 +370,9 @@ def _update_gaps(he: dict, j: dict, port: dict, rel: float = 1e-3) -> dict:
     gaps = {}
     for name, (delta, jdelta) in deltas.items():
         ulp = float(np.spacing(np.float32(np.abs(j["new"][name]).max())))
-        tol = (2e-6 * LR * head_scale if _pre_bn_bias(name)
-               else rel * float(np.abs(jdelta).max()))
-        gaps[name] = float(np.abs(delta - jdelta).max()) / (tol + ulp)
+        big = float(np.abs(jdelta).max())
+        tol = 2e-6 * LR * head_scale if _pre_bn_bias(name) else rel * big
+        gaps[name] = float(np.abs(delta - jdelta).max()) / (tol + extra * big + ulp)
     return gaps
 
 
@@ -340,11 +381,13 @@ def test_sharded_step_matches_jax(case, he, jax_side, port_side):
     j = jax_side[case]
     ranks = [r[case] for r in port_side]
     assert all(r["wrapped"] == "DistributedDataParallel" for r in ranks)
+    assert all(r["step_fn"] == "sharded_train_step" for r in ranks)
     port = ranks[0]
     got = port["metrics"]
     assert set(got) == set(j["metrics"]) and len(got) > 1
     loss_gap = {k: abs(got[k] - v) / abs(v) for k, v in j["metrics"].items()}
-    gaps = _update_gaps(he, j, port)
+    extra = 2.0 ** -6 if case[1] == "bfloat16" else 0.0
+    gaps = _update_gaps(he, j, port, 1e-3, extra)
     worst = max(gaps, key=gaps.get)
     stats_gap = max([float(np.abs(v - j["new"][n]).max()
                            / (1e-7 + 1e-5 * np.abs(j["new"][n]).max()))
@@ -367,3 +410,68 @@ def test_sharded_step_matches_jax(case, he, jax_side, port_side):
     # DDP keeps the replicas identical
     for n, v in ranks[1]["after"].items():
         np.testing.assert_array_equal(v, _sample(torch.from_numpy(port["after"][n])))
+
+
+def test_bf16_hook_is_jax_order(port_side):
+    """On every bucket of the bfloat16 case's step, both ranks' synced
+    gradients are bit-equal to JAX's order on their local gradients, and
+    not to the float32 sync; the float32 cases register no hook."""
+    for r in port_side:
+        got = r[("step1_bbox", "bfloat16")]["bf16"]
+        assert got["buckets"] >= 1 and got["values"] > 10 ** 6, got
+        assert got["exact"], got
+        assert got["off_f32"] > 0, got
+        for case in CASES[:2]:
+            assert r[case]["bf16"]["buckets"] == 0
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_batch_halves_are_well_conditioned(rank, he):
+    """The stage-3 case's premise: on each rank's half, with that rank's
+    draws, multiplying the pooled ROI features by (1 + 1e-7 noise) moves no
+    trainable gradient (clipped at the recipe's 0.05, as the update sees
+    it) by half the gate, 1e-3 x its largest value, in one process."""
+    from articulation3d_tpu_torch import config as pcfg
+    from articulation3d_tpu_torch.models.planercnn import build_model
+    from articulation3d_tpu_torch.train import optimizer as popt
+    from articulation3d_tpu_torch.train import targets as pt
+    from articulation3d_tpu_torch.train import train_step as pts
+    from articulation3d_tpu_torch.weights import warm_start
+
+    stage = "step3_plane"
+    cfg = pcfg.load_config(_config_path(stage), _overrides(stage, "float32"))
+    model = build_model(cfg, device="cpu")
+    warm_start(model, he)
+    popt.freeze_mask(model, cfg.model.freeze)
+    model.train()
+    per = GLOBAL_BATCH // WORLD
+    batch = pts.to_device({k: v[rank * per:(rank + 1) * per]
+                           for k, v in _global_batch().items()}, "cpu")
+    keys = _image_keys()[rank * per:(rank + 1) * per]
+    pool = model._pool
+    clip = cfg.solver.clip_value
+
+    def grads(eps, seed=0):
+        noise = torch.Generator().manual_seed(seed)
+
+        def noisy_pool(*a, **kw):
+            out = pool(*a, **kw)
+            return out * (1 + eps * torch.randn(out.shape, generator=noise))
+
+        model._pool = noisy_pool
+        model.zero_grad()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pt, "_uniform", _JaxDraws(keys))
+            losses = pts.compute_losses(model, batch, [torch.Generator()] * per)
+        sum(losses.values()).backward()
+        return {n: p.grad.clamp(-clip, clip).clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    base = grads(0.0)
+    worst = 0.0
+    for seed in (0, 1):
+        moved = grads(1e-7, seed)
+        worst = max(worst, max(float((moved[n] - g).abs().max())
+                               / (1e-3 * float(g.abs().max())) for n, g in base.items()
+                               if float(g.abs().max()) > 0))
+    assert worst < 0.5, worst

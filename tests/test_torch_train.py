@@ -65,21 +65,23 @@ H, W = 64, 80
 B = 2
 
 
-def _overrides(**solver):
+def _overrides(model=None, **solver):
     return {"model": {"rpn": {"pre_nms_topk_train": 32, "post_nms_topk_train": 16},
                       "roi_heads": {"batch_size_per_image": 8},
                       "depth_head": {"output_height": H, "output_width": W},
-                      "dtype": "float32"},
+                      "dtype": "float32", **(model or {})},
             "input": {"height": H, "width": W},
             "solver": {"ims_per_batch": B, "base_lr": 0.002, "warmup_factor": 1.0,
                        **solver},
             "weights": ""}
 
 
-def _cfgs(stage, **solver):
+def _cfgs(stage, model=None, **solver):
+    """The stage's (JAX, port) configs on the tiny shapes; `model` holds
+    extra model overrides (e.g. {"resnet": {"remat": True}})."""
     path = os.path.join(ROOT, "configs", f"{stage}.yaml")
-    return (jcfg.load_config(path, _overrides(**solver)),
-            pcfg.load_config(path, _overrides(**solver)))
+    return (jcfg.load_config(path, _overrides(model, **solver)),
+            pcfg.load_config(path, _overrides(model, **solver)))
 
 
 def _batch(seed=0):
@@ -172,8 +174,8 @@ def _jax_step(jc, params, batch_stats, batch, key):
                 stats=_np_tree(stats), decay=_np_tree(decay), tx=tx)
 
 
-def _run(oracle, stage, **solver):
-    jc, pc = _cfgs(stage, **solver)
+def _run(oracle, stage, model=None, **solver):
+    jc, pc = _cfgs(stage, model, **solver)
     zeros = _jax_zeros(stage)
     params, batch_stats, _ = port_detectron2_state_dict(
         oracle, zeros["params"], zeros.get("batch_stats", {}))
