@@ -322,3 +322,66 @@ def inference_config() -> Config:
             ),
         ),
     )
+
+
+def serving_config() -> Config:
+    """The deployment preset: `inference_config()` with 500 post-NMS
+    proposals (not 1000) and 30 detections per image (not 100).
+
+    Equivalence contract (JAX `config.py::serving_config`;
+    tests/test_torch_presets.py, and "[serving-preset]" of chip_smoke.py on
+    the card):
+      * per-box outputs equal the parity caps' for every box both keep;
+      * where at most 500 proposals survive RPN NMS the two box stages see
+        the same proposals, and the serving detections are exactly parity's
+        top 30;
+      * where more survive, the extra parity candidates can change
+        class-NMS outcomes; the divergence is bounded, not zero.
+    """
+    cfg = inference_config()
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model,
+        rpn=dataclasses.replace(cfg.model.rpn, post_nms_topk_test=500),
+        roi_heads=dataclasses.replace(cfg.model.roi_heads,
+                                      detections_per_image=30)))
+
+
+def step1_bbox_config() -> Config:
+    """Stage 1: the detector alone (reference `config/step1_bbox.yaml`)."""
+    return Config(
+        model=ModelConfig(mask_on=False, plane_on=False, depth_on=False,
+                          axis_on=False, refine_on=False),
+        solver=SolverConfig(ims_per_batch=16),
+        datasets_train=("arti_train",), datasets_test=("arti_val",),
+    )
+
+
+def step2_axis_config() -> Config:
+    """Stage 2: the axis head on a frozen detector (reference
+    `config/step2_axis.yaml`)."""
+    return Config(
+        model=ModelConfig(
+            mask_on=False, plane_on=False, depth_on=False, axis_on=True,
+            refine_on=False,
+            freeze=("backbone", "proposal_generator",
+                    "roi_heads.box_head", "roi_heads.box_predictor"),
+        ),
+        solver=SolverConfig(ims_per_batch=16),
+        datasets_train=("arti_train",), datasets_test=("arti_val",),
+    )
+
+
+def step3_plane_config() -> Config:
+    """Stage 3: mask, plane and depth on a frozen detector and axis head
+    (reference `config/step3_plane.yaml`)."""
+    return Config(
+        model=ModelConfig(
+            mask_on=True, plane_on=True, depth_on=True, axis_on=True,
+            refine_on=False,
+            freeze=("backbone", "proposal_generator",
+                    "roi_heads.box_head", "roi_heads.box_predictor",
+                    "roi_heads.axis_head"),
+        ),
+        solver=SolverConfig(ims_per_batch=8),
+        datasets_train=("scannet_train",), datasets_test=("scannet_val",),
+    )

@@ -12,7 +12,7 @@ Counterpart of the numpy half of `articulation3d_tpu/data/axis_codec.py`
   [0,0,1,1] for degenerate axes.
 
 Host-side numpy, used by the temporal optimizer, the visualisation and the
-mesh export.
+mesh export; ``axis_to_angle_offset_torch`` is the forward codec on tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def axis_to_angle_offset(axis: np.ndarray, centers: np.ndarray,
@@ -52,6 +53,25 @@ def axis_to_angle_offset(axis: np.ndarray, centers: np.ndarray,
     sin = -b * sgn / norm
     out = np.stack([sin, cos, offset, valid.astype(np.float64)], axis=1)
     return out.astype(np.float32)
+
+
+def axis_to_angle_offset_torch(axis: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of `axis_to_angle_offset` on (..., 4) segments and
+    (..., 2) centres, every row taken as given: (..., 4) [sin, cos,
+    offset, valid], valid 0 (and the rest 0) where the segment is a point."""
+    rel = axis - torch.cat([centers, centers], dim=-1)
+    x1, y1, x2, y2 = rel.unbind(-1)
+    a = y1 - y2
+    b = x2 - x1
+    c = x1 * y2 - x2 * y1
+    norm = torch.sqrt(a * a + b * b)
+    safe = torch.where(norm == 0, torch.ones_like(norm), norm)
+    offset = c.abs() / safe / 100.0
+    sgn = torch.sign(c)
+    cos = -a * sgn / safe
+    sin = -b * sgn / safe
+    valid = (norm > 0).to(axis.dtype)
+    return torch.stack([sin, cos, offset, valid], dim=-1)
 
 
 def get_boundary_point(y: float, x: float, angle: float, H: int, W: int

@@ -120,3 +120,13 @@ class DepthHead(nn.Module):
             x = self.depth_pred(x.to(torch.float32))
         x = _resize(x, (self.cfg.output_height, self.cfg.output_width))
         return x[:, 0]
+
+
+def depth_l1_loss_masked(pred: torch.Tensor, gt: torch.Tensor,
+                         over_ranks: bool = False) -> torch.Tensor:
+    """Masked L1: the mean of |pred - gt| where gt > 1e-4 (reference
+    `depth_head.py:19-21,95`); with `over_ranks` the count of such pixels
+    is the global batch's."""
+    mask = (gt > 1e-4).to(pred.dtype)
+    n = global_count(mask.sum()) if over_ranks else mask.sum()
+    return ((pred - gt).abs() * mask).sum() / n.clamp(min=1.0)

@@ -41,6 +41,18 @@ def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return out if batched else out[0]
 
 
+def sem_seg_postprocess(result: torch.Tensor, img_size: Tuple[int, int],
+                        output_height: int, output_width: int) -> torch.Tensor:
+    """Semantic-segmentation logits (C, H, W) -> float32 (C, out_h, out_w):
+    crop the size-divisibility padding off to `img_size`, then resize with
+    half-pixel centres to the original resolution (the reference's
+    `modeling/postprocessing.py:77-98`; the PlaneRCNN flow does not use it)."""
+    cropped = result[:, :img_size[0], :img_size[1]]
+    out = resize_bilinear(cropped.permute(1, 2, 0).to(torch.float32),
+                          output_height, output_width)
+    return out.permute(2, 0, 1)
+
+
 def preprocess_images(images: torch.Tensor,
                       pixel_mean: Tuple[float, float, float] = (103.53, 116.28, 123.675),
                       pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0),

@@ -8,7 +8,7 @@ ragged shapes.  Boxes are XYXY float in absolute pixels (detectron2).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,6 +32,54 @@ class Detections:
     planes: Optional[torch.Tensor] = None
     rot_axis: Optional[torch.Tensor] = None
     tran_axis: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.boxes.shape[-2]
+
+    def num_valid(self) -> torch.Tensor:
+        """Valid detections per image, (...,) int64."""
+        return self.valid.sum(-1)
+
+    def replace(self, **kw) -> "Detections":
+        return dataclasses.replace(self, **kw)
+
+    def asdict(self) -> Dict[str, torch.Tensor]:
+        """The fields that are set, by name (the tensors themselves)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
+
+    @classmethod
+    def empty(cls, capacity: int, with_masks: Optional[int] = None,
+              planes: bool = False, axes: bool = False, *,
+              device) -> "Detections":
+        """One image's all-invalid detections of `capacity` rows on
+        `device`, with (capacity, M, M) masks for `with_masks` = M, planes
+        and the two axes when asked."""
+        zeros = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype, device=device)
+        d = cls(boxes=zeros(capacity, 4), scores=zeros(capacity),
+                classes=zeros(capacity, dtype=torch.int64),
+                valid=zeros(capacity, dtype=torch.bool))
+        if with_masks is not None:
+            d.masks = zeros(capacity, with_masks, with_masks)
+        if planes:
+            d.planes = zeros(capacity, 3)
+        if axes:
+            d.rot_axis, d.tran_axis = zeros(capacity, 3), zeros(capacity, 2)
+        return d
+
+    def to_host(self) -> "HostDetections":
+        """One image's valid rows as numpy arrays (bfloat16 as float32)."""
+        valid = self.valid.detach().cpu().numpy()
+        assert valid.ndim == 1, "to_host operates on a single image"
+        keep = np.nonzero(valid)[0]
+        out = {}
+        for name, v in self.asdict().items():
+            if name == "valid":
+                continue
+            v = v.detach().cpu()
+            out[name] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()[keep]
+        return HostDetections(**out)
 
 
 class FramePrediction:
@@ -67,6 +115,35 @@ class FramePrediction:
                                self.classes.copy(), self.masks,
                                self.planes.copy(), self.rot_axis.copy(),
                                self.tran_axis.copy())
+
+
+class HostDetections:
+    """Trimmed numpy detections for host-side stages (tracker, eval,
+    export); `full_masks` (N, H, W) are the pasted binary masks."""
+
+    def __init__(self, boxes, scores, classes, masks=None, planes=None,
+                 rot_axis=None, tran_axis=None, full_masks=None):
+        self.boxes = boxes
+        self.scores = scores
+        self.classes = classes
+        self.masks = masks
+        self.planes = planes
+        self.rot_axis = rot_axis
+        self.tran_axis = tran_axis
+        self.full_masks = full_masks
+
+    def __len__(self):
+        return len(self.boxes)
+
+
+def pad_to(t: torch.Tensor, n: int, axis: int = 0, value=0) -> torch.Tensor:
+    """Pad (or truncate) `t` to size `n` along `axis` with `value`."""
+    cur = t.shape[axis]
+    if cur >= n:
+        return t.narrow(axis, 0, n)
+    shape = list(t.shape)
+    shape[axis] = n - cur
+    return torch.cat([t, t.new_full(shape, value)], dim=axis)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..models.depth_head import depth_l1_loss_masked
 from ..models.heads import double_angle
 from ..models.refine_head import refine_loss_single
 from ..ops.box_ops import encode_deltas, pairwise_iou, smooth_l1_loss
@@ -333,10 +334,7 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict, cfg: Config,
             for i in range(b))
 
     if "depth_pred" in outputs:
-        pred = outputs["depth_pred"].to(torch.float32)
-        gtd = gt["depth"].to(torch.float32)
-        mask = (gtd > 1e-4).to(torch.float32)
-        losses["depth_loss"] = (mcfg.depth_head.loss_weight
-                                * ((pred - gtd).abs() * mask).sum()
-                                / count(mask.sum()).clamp(min=1.0))
+        losses["depth_loss"] = mcfg.depth_head.loss_weight * depth_l1_loss_masked(
+            outputs["depth_pred"].to(torch.float32), gt["depth"].to(torch.float32),
+            over_ranks)
     return losses

@@ -147,12 +147,26 @@ non-zero exit):
      (FPN features per level within 1e-5 of their largest value, proposal
      and detection box differences, with cuDNN's default algorithms,
      deterministic ones and cuDNN off);
- 17. a JSON line of kernel measurements, then the device JSON as the last
+ 17. "[serving-preset]": the deployment preset `serving_config()` (500
+     post-NMS proposals, 30 detections per image, score threshold 0) beside
+     phase 3's parity cell, same weights, `VideoPipeline` at batch 8, as
+     alternating pairs (parity, preset, parity, preset), each turn 25
+     chunks of 8 noise frames: frames/s over its 24 warm chunks, the
+     spread of their walls, peak memory, K1 launches; K1 at the preset's own pool
+     inputs (box 500 ROIs per image, mask and plane 30) and parity's, its
+     record against `_prepare`, against its plain version, and its times
+     beside the plain version and the bound; then the preset's equivalence
+     contract on the card: RPN survivors and regime per frame, the preset's
+     detections matched to parity's at bench.py's on-chip gates (every one
+     in a frame of at most 500 survivors, at least 90 % above), the depth
+     maps equal, once on the cell and once at 100 proposals per level
+     before NMS, where every frame fits under 500;
+ 18. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
 `python3 chip_smoke.py --only parity,oracle-rois,f1,train-parity,refine-serve,
-refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,export-extra,goldens` builds the
-kernels and runs just the named phases of 2, 6, 8 and 10-16 (any subset; "parity" is
+refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,export-extra,goldens,serving-preset`
+builds the kernels and runs just the named phases of 2, 6, 8 and 10-17 (any subset; "parity" is
 phase 2's kernel and adjoint parity, "train-parity" phase 6 on phase 5's
 batch; "ddp-2" writes phase 9's dataset if it is missing); it is
 for iterating on those phases, makes no kernel line, and its last line,
@@ -179,6 +193,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 STRIDES = (4, 8, 16, 32)
+PRESET_CHUNKS = 25             # chunks of 8 frames per timed turn of "[serving-preset]"
 POOLS = {"box": (7, 0, True), "mask": (14, 2, False), "plane": (14, 0, False)}
 
 
@@ -525,7 +540,7 @@ def main() -> int:
     f1 = phase_f1(rac)
 
     # 3. main path -------------------------------------------------------
-    cfg = _serving_config()
+    cfg = _parity_config()
     sd = _serving_weights(cfg)
     model = build_model(cfg, state_dict=sd)
     pipe = VideoPipeline(cfg, model, batch_size=8, conf_threshold=0.0)
@@ -695,11 +710,15 @@ def main() -> int:
     # 16. the goldens harness: a CPU-written fixture, the CLI on the card ----
     phase_goldens(rac, card)
 
-    # 17. results --------------------------------------------------------
+    # 17. the deployment preset beside the parity caps ---------------------
+    preset = phase_serving_preset(rac, card)
+
+    # 18. results --------------------------------------------------------
     max_err = max(_main_path_err(rac, captured), recipe["err"], f1["k1"], rtrain["err"],
-                  drpn["err"], ddp1["err1"], remat["err1"])
+                  drpn["err"], ddp1["err1"], remat["err1"], preset["err"])
     k1_new = {"refine_serve": rserve["k1"], "refine_train": rtrain["k1"], "drpn": drpn["k1"],
-              "ddp": ddp1["k1"], "ddp2": ddp2["k1"], "remat": remat["k1"]}
+              "ddp": ddp1["k1"], "ddp2": ddp2["k1"], "remat": remat["k1"],
+              "serving_preset": preset["k1"], "serving_preset_parity": preset["k1_parity"]}
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -719,6 +738,10 @@ def main() -> int:
         "kernel_ms": tot["kernel_ms"],
         "pools": per_pool,
         "training_box_pool": train["k1_train"],
+        # "[serving-preset]": the preset's pools and parity's, in one call
+        "serving_preset_pools": {k: {m: v[m] for m in ("ms", "kernel_ms", "plain_ms",
+                                                       "bound_ms", "rois")}
+                                 for k, v in preset["pools"].items()},
         # the oracle's 1000 proposals (mostly slivers) over a batch of 8
         "oracle_proposals": {k: {m: v[m] for m in ("kernel_ms", "plain_ms", "bound_ms")}
                              for k, v in oracle_rois.items()},
@@ -733,7 +756,7 @@ def main() -> int:
         "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0,
                              "recipe": recipe["k2"], "refine_serve": 0,
                              "refine_train": rtrain["k2"], "drpn": 0, "ddp": ddp1["k2"],
-                             "ddp2": ddp2["k2"], "remat": remat["k2"]},
+                             "ddp2": ddp2["k2"], "remat": remat["k2"], "serving_preset": 0},
         "max_abs_err": max(train["adj_err"], f1["k2"], ddp1["err2"], remat["err2"]),
         "ms": train["adj_ms"],
         "plain_ms": train["adj_plain_ms"],
@@ -1402,7 +1425,7 @@ def phase_training_parity(rac, train) -> None:
         torch.cuda.empty_cache()
 
 
-def _profile_step(pipe, frames, card) -> None:
+def _profile_step(pipe, frames, card, tag: str = "profile") -> None:
     """One warm device step under torch.profiler: device time by kernel
     name (top 12) and the device's busy share of the step's wall time.
     The profiler slows the host, so the idle share is an upper bound."""
@@ -1418,11 +1441,11 @@ def _profile_step(pipe, frames, card) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, by_name, n = _device_time(prof)
     total = sum(by_name.values())
-    _log(f"[profile] one warm step of 8 frames: wall {wall_us / 1e3:.3f} ms under the "
+    _log(f"[{tag}] one warm step of 8 frames: wall {wall_us / 1e3:.3f} ms under the "
          f"profiler, device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
          f"{n} kernels, kernel time {total / 1e3:.3f} ms ({card})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        _log(f"[profile]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  {name[:110]}")
+        _log(f"[{tag}]   {us / 1e3:9.3f} ms  {100 * us / max(total, 1e-9):5.1f}%  {name[:110]}")
 
 
 class _count_calls:
@@ -2083,8 +2106,9 @@ def phase_f1(rac) -> dict:
 # the refine head and the DRPN head at full width
 # --------------------------------------------------------------------------- #
 
-def _serving_config(**model_kw):
-    """configs/config.yaml at score threshold 0, with `model_kw`."""
+def _parity_config(**model_kw):
+    """configs/config.yaml at score threshold 0, with `model_kw`: the
+    parity caps (1000 post-NMS proposals, 100 detections per image)."""
     from articulation3d_tpu_torch.config import load_config
     cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
     heads = dataclasses.replace(cfg.model.roi_heads, score_thresh_test=0.0)
@@ -2182,7 +2206,7 @@ def phase_refine_serve(rac, card) -> dict:
     from articulation3d_tpu_torch.models.planercnn import build_model
     from articulation3d_tpu_torch.video.pipeline import VideoPipeline
 
-    cfg = _serving_config(refine_on=True)
+    cfg = _parity_config(refine_on=True)
     sd = _serving_weights(cfg)
     model = build_model(cfg, state_dict=sd)
     rs = np.random.RandomState(0)
@@ -2405,7 +2429,7 @@ def phase_drpn(rac, card) -> dict:
     from articulation3d_tpu_torch.ops.preprocess import preprocess_images
     from articulation3d_tpu_torch.video.pipeline import VideoPipeline
 
-    cfg = _serving_config()
+    cfg = _parity_config()
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, rpn=dataclasses.replace(cfg.model.rpn, head_convs=5)))
     sd = _serving_weights(cfg)
@@ -2680,7 +2704,7 @@ def _eval_trainer():
     scannet_val of phase 9's dataset at a batch of 8."""
     from articulation3d_tpu_torch.train.trainer import Trainer
     from articulation3d_tpu_torch.weights import load_d2_state_dict
-    cfg = _serving_config()
+    cfg = _parity_config()
     cfg = cfg.replace(datasets_test=("arti_val", "scannet_val"),
                       output_dir=os.path.join(ROOT, ".chip_smoke", "ranks_eval"),
                       solver=dataclasses.replace(cfg.solver, ims_per_batch=8))
@@ -3161,7 +3185,7 @@ def phase_goldens(rac, card) -> dict:
     meta = {"topk": 200, "dets": 20, "score_thresh": 0.0}
     cfg = cli._config_for({"image": image, **{f"meta_{k}": np.asarray(v)
                                               for k, v in meta.items()}}, "torch")
-    sd = _serving_weights(_serving_config())
+    sd = _serving_weights(_parity_config())
     t0 = time.perf_counter()
     model = build_model(cfg, device="cpu", state_dict=sd)
     fixture = goldens.goldens_from_probe(model, image, meta)
@@ -3311,10 +3335,223 @@ def _export_extra_alone(rac, card) -> dict:
     """"[export-extra]" on its own: phase 8's pipeline on the shifted clip."""
     from articulation3d_tpu_torch.models.planercnn import build_model
     from articulation3d_tpu_torch.video.pipeline import VideoPipeline
-    cfg = _serving_config()
+    cfg = _parity_config()
     pipe = VideoPipeline(cfg, build_model(cfg, state_dict=_serving_weights(cfg)),
                          batch_size=8, conf_threshold=0.0)
     return phase_export_extra(pipe, _shifted_clip(), card)
+
+
+def _preset_config():
+    """The deployment preset `serving_config()` (500 post-NMS proposals, 30
+    detections per image) at score threshold 0, as `_parity_config` sets
+    it."""
+    from articulation3d_tpu_torch.config import serving_config
+    cfg = serving_config()
+    heads = dataclasses.replace(cfg.model.roi_heads, score_thresh_test=0.0)
+    return cfg.replace(model=dataclasses.replace(cfg.model, roi_heads=heads))
+
+
+def _with_rpn(cfg, **rpn_kw):
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, rpn=dataclasses.replace(cfg.model.rpn, **rpn_kw)))
+
+
+def _contract(parity, preset, frames, card, tag: str) -> dict:
+    """The `serving_config` contract on the card: both models on the same
+    frames (batches of 8), the RPN survivors per frame and the regime they
+    put it in (<= 500: both caps see the same proposals, so the preset's
+    detections must be parity's top 30; 501-999: the preset's cap bites;
+    >= 1000: both do), and the preset's detections matched against
+    parity's at bench.py's on-chip gates (box 0.5 px, score 1e-3, mask
+    5e-2): every one in a frame under 500, at least 90 % over the frames
+    above it; the depth maps of the two equal within 1e-5."""
+    import torch
+
+    from articulation3d_tpu_torch.evaluation.serving_contract import match_detections
+    from articulation3d_tpu_torch.ops.preprocess import preprocess_images
+    keys = ("boxes", "scores", "classes", "valid", "masks")
+    got = {"parity": [], "preset": []}
+    surv, depth_err = [], 0.0
+    for i in range(0, len(frames), 8):
+        images = preprocess_images(torch.from_numpy(np.stack(frames[i:i + 8])).cuda())
+        outs = {}
+        for name, model in (("parity", parity), ("preset", preset)):
+            out = model.inference(images)
+            d = out["detections"]
+            got[name].append({k: (getattr(d, k).float() if k == "masks" else getattr(d, k))
+                              .cpu().numpy() for k in keys})
+            outs[name] = out
+        surv += outs["parity"]["proposals"]["valid"].sum(1).tolist()
+        s_surv = outs["preset"]["proposals"]["valid"].sum(1).tolist()
+        want = [min(n, 500) for n in surv[-len(s_surv):]]
+        assert s_surv == want, (s_surv, want)
+        a, b = outs["preset"]["depth"], outs["parity"]["depth"]
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        depth_err = max(depth_err, float((a - b).abs().max()))
+    cat = {n: {k: np.concatenate([c[k] for c in got[n]]) for k in keys} for n in got}
+    regimes = ["fits" if n <= 500 else "preset-saturated" if n < 1000 else "both-saturated"
+               for n in surv]
+    fits = [f for f, r in enumerate(regimes) if r == "fits"]
+    over = [f for f, r in enumerate(regimes) if r != "fits"]
+    sel = lambda d, fs: {k: v[fs] for k, v in d.items()}
+    gates = dict(box_tol=0.5, score_tol=1e-3, mask_tol=5e-2)
+    m = match_detections(cat["preset"], cat["parity"], **gates)
+    per_fit = {f: match_detections(sel(cat["preset"], [f]), sel(cat["parity"], [f]), **gates)
+               for f in fits}
+    m_over = match_detections(sel(cat["preset"], over), sel(cat["parity"], over), **gates) \
+        if over else None
+    fit_log = {f: f"{r['n_matched']}/{r['n_serving']} matched, {r['n_parity_extra']} left out"
+               for f, r in per_fit.items()}
+    _log(f"[{tag}] RPN survivors per frame {surv}; regimes {regimes}; matched / preset "
+         f"detections {m['n_matched']}/{m['n_serving']} (box <= 0.5 px, score <= 1e-3, "
+         f"mask <= 5e-2), max box / score / mask diff {m['max_box_diff']:.4g} / "
+         f"{m['max_score_diff']:.3g} / {m['max_mask_diff']:.4g}, parity detections above "
+         f"the weakest kept one left out {m['n_parity_extra']}; frames under 500, each: "
+         f"{fit_log if fits else 'none'}; frames over: {m_over if m_over else 'none'}; "
+         f"depth max diff {depth_err:.3g} ({card})")
+    assert m["n_serving"] > 0, m
+    for f, r in per_fit.items():
+        assert r["n_matched"] == r["n_serving"] and r["n_parity_extra"] == 0, (f, r)
+    if m_over:
+        assert m_over["n_matched"] >= 0.9 * m_over["n_serving"], m_over
+    return dict(survivors=surv, regimes=regimes, matched=m["n_matched"],
+                serving=m["n_serving"], extra=m["n_parity_extra"], depth_err=depth_err)
+
+
+def phase_serving_preset(rac, card) -> dict:
+    """"[serving-preset]": the deployment preset `serving_config()` at score
+    threshold 0 beside phase 3's parity cell, the same weights
+    (`_serving_weights`), the same 16 noise frames, `VideoPipeline` at batch
+    8 with the bf16 trunk and the kernel pooler: one warm run of each, then
+    parity, preset, parity, preset, each a run of `PRESET_CHUNKS` chunks of
+    8 frames (the 16 frames and more noise frames after them), with the
+    frames/s of its warm chunks (all but the first), the spread of their
+    walls, peak memory and K1 launches, and one warm step of each under the
+    profiler (`_profile_step`).  Then, at the preset's own pool inputs
+    (box 7x7 at 500 ROIs per image, mask and plane 14x14 at 30) and
+    parity's (1000 and 100), K1's record against `_prepare`, K1 against
+    its plain version, its time alone and the wrapper's beside the plain
+    version and the bound.  Then the contract (`_contract`) on those frames,
+    and once more with 100 proposals per level before NMS, where no frame
+    can have more than 500 survivors."""
+    import torch
+
+    from articulation3d_tpu_torch.models.planercnn import build_model
+    from articulation3d_tpu_torch.ops.preprocess import preprocess_images
+    from articulation3d_tpu_torch.video.pipeline import VideoPipeline
+    cfgs = {"parity": _parity_config(), "preset": _preset_config()}
+    sd = _serving_weights(cfgs["parity"])
+    models = {n: build_model(c, state_dict=sd) for n, c in cfgs.items()}
+    pipes = {n: VideoPipeline(cfgs[n], m, batch_size=8, conf_threshold=0.0)
+             for n, m in models.items()}
+    rs = np.random.RandomState(0)
+    stream = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+              for _ in range(8 * PRESET_CHUNKS)]
+    frames = stream[:16]
+    for pipe in pipes.values():
+        pipe.run(frames)
+    runs = {"parity": [], "preset": []}
+    launches = {"parity": 0, "preset": 0}
+    for name in ("parity", "preset", "parity", "preset"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rac.multilevel_roi_align_cuda.launches = 0
+        t0 = time.perf_counter()
+        preds = pipes[name].run(stream)
+        run_wall = time.perf_counter() - t0
+        k1 = rac.multilevel_roi_align_cuda.launches
+        assert k1 == 3 * PRESET_CHUNKS, (name, k1)
+        assert len(preds) == len(stream) and all(len(p) > 0 for p in preds)
+        cap = cfgs[name].model.roi_heads.detections_per_image
+        assert all(len(p) <= cap for p in preds)
+        for pr in preds:
+            for a in (pr.boxes, pr.scores, pr.planes, pr.rot_axis, pr.tran_axis):
+                assert np.isfinite(a).all()
+        per_frame = [len(p) for p in preds[:4]]
+        del preds
+        warm = np.asarray(pipes[name].chunk_walls[1:])
+        fps = 8 * len(warm) / float(warm.sum())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches[name] += k1
+        runs[name].append(dict(fps=fps, wall_min=float(warm.min()),
+                               wall_median=float(np.median(warm)), wall_max=float(warm.max()),
+                               run_fps=len(stream) / run_wall, peak_gib=peak))
+        _log(f"[serving-preset] {name}: {len(warm)} warm chunks of 8 frames, {fps:.2f} "
+             f"frames/s; chunk wall min / median / max {warm.min():.4f} / "
+             f"{np.median(warm):.4f} / {warm.max():.4f} s; the whole run of {len(stream)} "
+             f"frames with the host's unpacking {len(stream) / run_wall:.2f} frames/s; "
+             f"detections per frame {per_frame}..., peak {peak:.3f} GiB "
+             f"({base / 2**30:.3f} GiB before the run), K1 launches {k1}, valid ROIs per "
+             f"pool stage {pipes[name].pool_valid} ({card})")
+
+    for name, pipe in pipes.items():
+        _profile_step(pipe, frames[:8], card, f"serving-preset-profile-{name}")
+
+    pools = {}
+    for name, model in models.items():
+        captured = []
+        pool = model._pool
+
+        def recording_pool(roi_feats, boxes, _pool=pool, _into=captured, **kw):
+            _into.append((roi_feats, boxes, kw))
+            return _pool(roi_feats, boxes, **kw)
+
+        model._pool = recording_pool
+        try:
+            with torch.no_grad():
+                model.inference(preprocess_images(torch.from_numpy(np.stack(frames[8:])).cuda()))
+        finally:
+            del model._pool
+        err = _main_path_err(rac, captured, f"serving-preset-{name}-pools")
+        for (roi_feats, boxes, kw), stage in zip(captured, ("box", "mask", "plane")):
+            p, sr, al, valid = kw["resolution"], kw["sampling_ratio"], kw["aligned"], kw["valid"]
+            args = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=al,
+                        valid=valid)
+            n_rec, cells = _check_record(rac, roi_feats, boxes, valid, p, sr, al)
+            ms = _time_ms(lambda: rac.multilevel_roi_align_cuda(roi_feats, boxes, **args))
+            kern = _time_kernel(rac, roi_feats, boxes, valid, p, sr, al)
+            plain = _time_ms(lambda: rac.multilevel_roi_align_separable(roi_feats, boxes,
+                                                                        **args),
+                             iters=3, warmup=1)
+            bound, by = _bound(rac, roi_feats, boxes, valid, p, sr, al)
+            _log(f"[serving-preset] {name} {stage:5s} pool P={p:2d} rois="
+                 f"{boxes.shape[0] * boxes.shape[1]} valid={int(valid.sum())} "
+                 f"{str(roi_feats[0].dtype)[6:]}: wrapper {ms:.4f} ms (kernel alone "
+                 f"{kern:.4f} ms), plain {plain:.4f} ms, bound {bound:.4f} ms by {by}; "
+                 f"kernel/bound {kern / bound:.2f}x; record == _prepare on {n_rec} ROIs; "
+                 f"{cells} ({card})")
+            pools[f"{name}_{stage}"] = dict(ms=ms, kernel_ms=kern, plain_ms=plain,
+                                            bound_ms=bound, bound_by=by, err=err,
+                                            rois=int(boxes.shape[0] * boxes.shape[1]))
+        del captured
+
+    contract = _contract(models["parity"], models["preset"], frames, card,
+                         "serving-preset-contract")
+    del models, pipes
+    small = {n: build_model(_with_rpn(c, pre_nms_topk_test=100), state_dict=sd)
+             for n, c in cfgs.items()}
+    fits = _contract(small["parity"], small["preset"], frames, card,
+                     "serving-preset-contract-pre100")
+    assert set(fits["regimes"]) == {"fits"}, fits["regimes"]
+    del small
+    torch.cuda.empty_cache()
+    fps = {n: [r["fps"] for r in runs[n]] for n in runs}
+    spread = {n: (max(v) - min(v)) / min(v) for n, v in fps.items()}
+    ratios = [b / a for a, b in zip(fps["parity"], fps["preset"])]
+    _log(f"[serving-preset] frames/s over {PRESET_CHUNKS - 1} warm chunks per turn, in turns "
+         f"parity {fps['parity']} / preset {fps['preset']}: spread between a side's turns "
+         f"parity {100 * spread['parity']:.1f} % / preset {100 * spread['preset']:.1f} %; "
+         f"preset/parity per pair {['%.3f' % r for r in ratios]}; "
+         f"K1 preset box / mask / plane kernel {pools['preset_box']['kernel_ms']:.4f} / "
+         f"{pools['preset_mask']['kernel_ms']:.4f} / {pools['preset_plane']['kernel_ms']:.4f} ms "
+         f"against parity {pools['parity_box']['kernel_ms']:.4f} / "
+         f"{pools['parity_mask']['kernel_ms']:.4f} / {pools['parity_plane']['kernel_ms']:.4f} "
+         f"ms ({card})")
+    return dict(k1=launches["preset"], k1_parity=launches["parity"], runs=runs, pools=pools,
+                err=max(v["err"] for v in pools.values()), contract=contract,
+                contract_pre100=fits)
 
 
 PHASES = {"parity": lambda rac, card: (phase_kernel_parity(rac), phase_adjoint_parity(rac)),
@@ -3327,7 +3564,8 @@ PHASES = {"parity": lambda rac, card: (phase_kernel_parity(rac), phase_adjoint_p
           "ddp-2": lambda rac, card: phase_ranks(card, 2, "ddp-2"),
           "remat": lambda rac, card: phase_remat(rac, card, {"steps_per_s": float("nan")}),
           "ddp-cards": lambda rac, card: phase_ranks(card, _cards(), "ddp-cards"),
-          "export-extra": _export_extra_alone, "goldens": phase_goldens}
+          "export-extra": _export_extra_alone, "goldens": phase_goldens,
+          "serving-preset": phase_serving_preset}
 
 
 def _cards() -> int:
@@ -3348,7 +3586,7 @@ def _only_phases() -> list:
     if len(args) != 2 or args[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only parity,oracle-rois,f1,train-parity,"
                          "refine-serve,refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,"
-                         "export-extra,goldens]")
+                         "export-extra,goldens,serving-preset]")
     names = args[1].split(",")
     bad = [n for n in names if n not in PHASES]
     if bad:
