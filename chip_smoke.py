@@ -161,12 +161,29 @@ non-zero exit):
      in a frame of at most 500 survivors, at least 90 % above), the depth
      maps equal, once on the cell and once at 100 proposals per level
      before NMS, where every frame fits under 500;
- 18. a JSON line of kernel measurements, then the device JSON as the last
+ 18. "[profile-stages]": the port's stage profilers on the card through
+     their CLIs' `main()`, with no `--device` (two warm runs, then the
+     mean wall of 5 runs, 3 for training, each ending in a host
+     readback): `profile_inference` at batch 8 at both presets,
+     `profile_depth` at batch 8, `profile_train` at stage 1 with ims 16
+     and at stage 3 with ims 8; each CLI prints its table under the card's
+     name and power limit.  A hook around each row (`_StageProbe`) prints
+     K1's and K2's calls per run (their wrappers' counters over the timed
+     runs) and one more run under torch.profiler (kernel launches, device
+     busy time, K1's and K2's device time), holds K1 against its plain
+     version on that run's pool inputs, and the training pool's kernel
+     rows against its gather rows (forward and gradients); it fails if a
+     row has no time, if a kernel row does not call K1 (the inference
+     kernel rows, "train pool ... (kernel)", the loss and step rows) or K2
+     ("train pool fwd+bwd (kernel)", stage 1's backward rows), if a gather
+     row calls either, or if a kernel disagrees;
+ 19. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
 `python3 chip_smoke.py --only parity,oracle-rois,f1,train-parity,refine-serve,
-refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,export-extra,goldens,serving-preset`
-builds the kernels and runs just the named phases of 2, 6, 8 and 10-17 (any subset; "parity" is
+refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,export-extra,goldens,serving-preset,
+profile-stages` builds the kernels and runs just the named phases of 2, 6, 8 and
+10-18 (any subset; "parity" is
 phase 2's kernel and adjoint parity, "train-parity" phase 6 on phase 5's
 batch; "ddp-2" writes phase 9's dataset if it is missing); it is
 for iterating on those phases, makes no kernel line, and its last line,
@@ -199,13 +216,6 @@ POOLS = {"box": (7, 0, True), "mask": (14, 2, False), "plane": (14, 0, False)}
 
 def _log(*a):
     print(*a, flush=True)
-
-
-def _smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
 def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -509,11 +519,12 @@ def main() -> int:
     from articulation3d_tpu_torch.models.planercnn import build_model
     from articulation3d_tpu_torch.ops import roi_align_cuda as rac
     from articulation3d_tpu_torch.ops.preprocess import preprocess_images
+    from articulation3d_tpu_torch.profiling import device_label
     from articulation3d_tpu_torch.video.pipeline import VideoPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = _smi()
+    card = device_label(torch.device("cuda", 0))
     kind = torch.cuda.get_device_name(0)
 
     # 1. device and build -------------------------------------------------
@@ -713,12 +724,16 @@ def main() -> int:
     # 17. the deployment preset beside the parity caps ---------------------
     preset = phase_serving_preset(rac, card)
 
-    # 18. results --------------------------------------------------------
+    # 18. the stage profilers ----------------------------------------------
+    stages = phase_profile_stages(rac, card)
+
+    # 19. results --------------------------------------------------------
     max_err = max(_main_path_err(rac, captured), recipe["err"], f1["k1"], rtrain["err"],
-                  drpn["err"], ddp1["err1"], remat["err1"], preset["err"])
+                  drpn["err"], ddp1["err1"], remat["err1"], preset["err"], stages["err1"])
     k1_new = {"refine_serve": rserve["k1"], "refine_train": rtrain["k1"], "drpn": drpn["k1"],
               "ddp": ddp1["k1"], "ddp2": ddp2["k1"], "remat": remat["k1"],
-              "serving_preset": preset["k1"], "serving_preset_parity": preset["k1_parity"]}
+              "serving_preset": preset["k1"], "serving_preset_parity": preset["k1_parity"],
+              "profile_stages": stages["k1"]}
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -752,12 +767,14 @@ def main() -> int:
         "source": "articulation3d_tpu_torch/csrc/roi_align_adj.cu",
         "replaces": "articulation3d_tpu/ops/roi_align_pallas.py:519",
         "launches": (train["k2"] + recipe["k2"] + rtrain["k2"] + ddp1["k2"] + ddp2["k2"]
-                     + remat["k2"]),
+                     + remat["k2"] + stages["k2"]),
         "launches_by_path": {"inference": 0, "training": train["k2"], "cli": 0,
                              "recipe": recipe["k2"], "refine_serve": 0,
                              "refine_train": rtrain["k2"], "drpn": 0, "ddp": ddp1["k2"],
-                             "ddp2": ddp2["k2"], "remat": remat["k2"], "serving_preset": 0},
-        "max_abs_err": max(train["adj_err"], f1["k2"], ddp1["err2"], remat["err2"]),
+                             "ddp2": ddp2["k2"], "remat": remat["k2"], "serving_preset": 0,
+                             "profile_stages": stages["k2"]},
+        "max_abs_err": max(train["adj_err"], f1["k2"], ddp1["err2"], remat["err2"],
+                           stages["err2"]),
         "ms": train["adj_ms"],
         "plain_ms": train["adj_plain_ms"],
         "bound_ms": train["adj_bound_ms"],
@@ -1036,26 +1053,14 @@ def phase_artefacts(rac, pipe, frames, card) -> int:
 
 
 def _train_batch(cfg, b: int, g: int = 4):
-    """Synthetic batch of `b` images with `g` GT boxes each, in the style of
-    tools/train_on_chip.py::_batch (np.random.RandomState(0)); only the
-    fields the config's heads read."""
-    h, w = cfg.input.height, cfg.input.width
-    rs = np.random.RandomState(0)
-    bs = max(20, min(h, w) // 5)
-    boxes = []
-    for _ in range(b * g):
-        x1 = rs.uniform(0, w - 2 * bs)
-        y1 = rs.uniform(0, h - 2 * bs)
-        boxes.append([x1, y1, x1 + rs.uniform(bs, 2 * bs), y1 + rs.uniform(bs, 2 * bs)])
-    batch = {
-        "images": rs.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
-        "gt_boxes": np.asarray(boxes, np.float32).reshape(b, g, 4),
-        "gt_classes": rs.randint(0, 2, (b, g)).astype(np.int32),
-        "gt_valid": np.ones((b, g), bool),
-    }
+    """`profile_train.train_batch` (the synthetic batch of
+    tools/train_on_chip.py::_batch, np.random.RandomState(0)) with only
+    the fields the detector reads."""
+    from articulation3d_tpu_torch.profile_train import train_batch
     assert not (cfg.model.mask_on or cfg.model.plane_on or cfg.model.axis_on
                 or cfg.model.depth_on), "stage 1 runs the detector only"
-    return batch
+    batch = train_batch(cfg, b, g)
+    return {k: batch[k] for k in ("images", "gt_boxes", "gt_classes", "gt_valid")}
 
 
 def _train_weights(seed: int = 0, rpn_delta_scale: float = 0.01):
@@ -3554,6 +3559,164 @@ def phase_serving_preset(rac, card) -> dict:
                 contract_pre100=fits)
 
 
+PROFILE_BATCH = 8                   # frames per batch of the inference and depth tables
+PROFILE_TRAIN = ((1, 16), (3, 8))   # (stage, ims) of the training tables
+
+
+def _expected_calls(table: str, name: str) -> tuple:
+    """(K1 called, K2 called) in a run of the row `name` of a
+    "[profile-stages]" table: K1 in every pool of the kernel route, K2 in
+    its backward where gradient reaches the features (stage 3 freezes the
+    trunk, so its loss and step rows send none)."""
+    if "gather" in name or table == "depth":
+        return (False, False)
+    if table.startswith("inference"):
+        return (name not in ("backbone+fpn", "+rpn (proposals)"), False)
+    k1 = "kernel" in name or name.startswith(("loss", "full step"))
+    k2 = "fwd+bwd (kernel)" in name or (
+        table == "train-1" and name.startswith(("loss fwd+bwd", "full step")))
+    return (k1, k2)
+
+
+class _StageProbe:
+    """The `around` hook that "[profile-stages]" hands a profiler's `main()`
+    (`profiling.time_rows`).  For each row: K1's and K2's calls per timed
+    run (their wrappers' counters), then one more run under torch.profiler
+    (kernel launches, device busy time, K1's and K2's device time, as far
+    as the profiler records them: on the card it has dropped every kernel
+    of some runs of a few milliseconds, so these are lower bounds) that
+    also keeps the row's pool inputs (`_record_pools`).  K1 is held against
+    its plain version on those inputs (`_pools`), and the training
+    pool rows' kernel route against their gather route: the pooled ROIs
+    within 1e-5 x max|gather| (K1's float32 tolerance), the gradients to
+    p2..p5 within 1e-4 x max|gather| per level (K2's)."""
+
+    def __init__(self, rac, card, tag: str, steps: int):
+        self.rac, self.card, self.tag = rac, card, tag
+        self.runs = steps + 2                   # `time_fn`'s two warm runs and `steps`
+        self.rows, self.k1, self.k2, self.err1, self.err2 = {}, 0, 0, 0.0, 0.0
+        self.kernel_pool = {}                   # train pool outputs of the kernel route
+
+    def __call__(self, name, fn, timed) -> float:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from articulation3d_tpu_torch.profiling import reduce_sum
+        fwd, adj = self.rac.multilevel_roi_align_cuda, self.rac.multilevel_roi_align_adjoint_cuda
+        c1, c2 = fwd.launches, adj.launches
+        dt = timed()
+        d1, d2 = fwd.launches - c1, adj.launches - c2
+        assert d1 % self.runs == 0 and d2 % self.runs == 0, (self.tag, name, d1, d2)
+        pools = _record_pools(16)
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn()
+                reduce_sum(out).item()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+        finally:
+            pools.restore()
+        self.k1 += fwd.launches - c1
+        self.k2 += adj.launches - c2
+        busy, by_name, n = _device_time(prof)
+        k_ms = {k: sum(v for key, v in by_name.items() if f"roi_align_{k}" in key) / 1e3
+                for k in ("fwd", "adj")}
+        row = dict(name=name, ms=dt * 1e3, k1=d1 // self.runs, k2=d2 // self.runs,
+                   kernels=n, busy_ms=busy / 1e3, profiled_wall_ms=wall_ms,
+                   k1_ms=k_ms["fwd"], k2_ms=k_ms["adj"], pools=len(pools.calls))
+        _log(f"[{self.tag}] {name:<36} {row['ms']:10.3f} ms/step; one more run under the "
+             f"profiler: {n} kernels, device busy {row['busy_ms']:.3f} ms of "
+             f"{wall_ms:.3f} ms, K1 {row['k1_ms']:.3f} ms, K2 {row['k2_ms']:.3f} ms; "
+             f"calls per run K1 {row['k1']} K2 {row['k2']} ({self.card})")
+        if d1 and pools.calls:
+            self.err1 = max(self.err1, self._pools(name, pools.calls))
+        if name.startswith("train pool fwd+bwd"):
+            self.err2 = max(self.err2, self._pool_routes(name, out))
+        elif name.startswith("train pool"):
+            self.err1 = max(self.err1, self._pool_routes(name, out))
+        self.rows[name] = row
+        return dt
+
+    def _pools(self, name: str, calls) -> float:
+        """K1 against its plain version on the row's pool inputs, then on
+        those of them with an invalid slot once more with every slot valid:
+        the cascade pools the detections above the score threshold, and at
+        the profilers' weights there may be none."""
+        valid = [None if kw.get("valid") is None else int(kw["valid"].sum())
+                 for _, _, kw in calls]
+        _log(f"[{self.tag}] {name}: valid ROIs per pool {valid} of "
+             f"{[int(b.shape[0] * b.shape[1]) for _, b, _ in calls]}")
+        err = _main_path_err(self.rac, calls, f"{self.tag} {name}")
+        partial = [(f, b, dict(kw, valid=None)) for f, b, kw in calls
+                   if kw.get("valid") is not None and not bool(kw["valid"].all())]
+        if partial:
+            err = max(err, _main_path_err(self.rac, partial,
+                                          f"{self.tag} {name}, every slot valid"))
+        return err
+
+    def _pool_routes(self, name: str, out) -> float:
+        key = "fwd+bwd" if "fwd+bwd" in name else "fwd"
+        if "(kernel" in name:
+            self.kernel_pool[key] = out
+            return 0.0
+        got = self.kernel_pool.pop(key)
+        pairs = [(got, out)] if key == "fwd" else list(zip(got, out))
+        tol = 1e-5 if key == "fwd" else 1e-4
+        errs = []
+        for a, b in pairs:
+            e, scale = float((a - b).abs().max()), float(b.abs().max())
+            assert e <= tol * scale, (self.tag, name, e, tol * scale)
+            errs.append(e)
+        _log(f"[{self.tag}] {name}: the kernel route against this gather route, max abs "
+             f"err {['%.3e' % e for e in errs]} (tol {tol} x max|gather|: "
+             f"{['%.3e' % (tol * float(b.abs().max())) for _, b in pairs]})")
+        return max(errs)
+
+
+def phase_profile_stages(rac, card) -> dict:
+    """18. "[profile-stages]": the port's three stage profilers on the card
+    through their CLIs' `main()` (module docstring), each with a
+    `_StageProbe` around its rows; the tables are the CLIs' own, headed
+    with the card's name and power limit.  Returns the phase's K1 and K2
+    launches (the timed and profiled runs, not the comparisons) and their
+    largest errors against the plain versions."""
+    import torch
+
+    from articulation3d_tpu_torch import profile_depth, profile_inference, profile_train
+
+    t0 = time.perf_counter()
+    b = str(PROFILE_BATCH)
+    runs = [("inference-parity", profile_inference, ["--preset", "parity", "--batch", b], 5),
+            ("inference-serving", profile_inference, ["--preset", "serving", "--batch", b], 5),
+            ("depth", profile_depth, ["--batch", b], 5)]
+    runs += [(f"train-{stage}", profile_train, ["--stage", str(stage), "--ims", str(ims)], 3)
+             for stage, ims in PROFILE_TRAIN]
+    k1 = k2 = 0
+    err1 = err2 = 0.0
+    for table, cli, argv, steps in runs:
+        tag = f"profile-stages {table}"
+        probe = _StageProbe(rac, card, tag, steps)
+        t_table = time.perf_counter()
+        rows = cli.main(argv + ["--steps", str(steps)], around=probe)
+        torch.cuda.empty_cache()
+        missing = [(name, why) for name, dt, why in rows if dt is None]
+        assert not missing, (tag, missing, card)
+        assert [r[0] for r in rows] == list(probe.rows), (tag, rows, list(probe.rows))
+        for name, r in probe.rows.items():
+            calls = (r["k1"] > 0, r["k2"] > 0)
+            assert calls == _expected_calls(table, name), (tag, name, r["k1"], r["k2"])
+        assert not probe.kernel_pool, (tag, list(probe.kernel_pool))
+        k1, k2 = k1 + probe.k1, k2 + probe.k2
+        err1, err2 = max(err1, probe.err1), max(err2, probe.err2)
+        _log(f"[{tag}] table wall {time.perf_counter() - t_table:.1f} s")
+    _log(f"[profile-stages] K1 {k1} and K2 {k2} launches in the phase's timed and profiled "
+         f"runs; largest error K1 {err1:.3e}, K2 {err2:.3e}; phase wall {time.perf_counter() - t0:.1f} s "
+         f"({card})")
+    return dict(k1=k1, k2=k2, err1=err1, err2=err2)
+
+
 PHASES = {"parity": lambda rac, card: (phase_kernel_parity(rac), phase_adjoint_parity(rac)),
           "oracle-rois": phase_oracle_rois, "f1": lambda rac, card: phase_f1(rac),
           "train-parity": lambda rac, card: phase_training_parity(
@@ -3565,7 +3728,7 @@ PHASES = {"parity": lambda rac, card: (phase_kernel_parity(rac), phase_adjoint_p
           "remat": lambda rac, card: phase_remat(rac, card, {"steps_per_s": float("nan")}),
           "ddp-cards": lambda rac, card: phase_ranks(card, _cards(), "ddp-cards"),
           "export-extra": _export_extra_alone, "goldens": phase_goldens,
-          "serving-preset": phase_serving_preset}
+          "serving-preset": phase_serving_preset, "profile-stages": phase_profile_stages}
 
 
 def _cards() -> int:
@@ -3586,7 +3749,7 @@ def _only_phases() -> list:
     if len(args) != 2 or args[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only parity,oracle-rois,f1,train-parity,"
                          "refine-serve,refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,"
-                         "export-extra,goldens,serving-preset]")
+                         "export-extra,goldens,serving-preset,profile-stages]")
     names = args[1].split(",")
     bad = [n for n in names if n not in PHASES]
     if bad:

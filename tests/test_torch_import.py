@@ -3,10 +3,11 @@
   * a fresh interpreter imports every module of `articulation3d_tpu_torch`
     (the training slice's `train.*`, the CLI's temporal, export and vis
     modules, the data path, evaluators, `train_net` and `opt_arti`, and
-    the data parallelism, the rest of export and vis and the goldens
-    harness among them) and `chip_smoke.py` and finds neither `jax`,
-    `flax`, `optax` nor `articulation3d_tpu` in `sys.modules`, nor
-    `matplotlib`, which the card's machine does not have;
+    the data parallelism, the rest of export and vis, the goldens
+    harness and the stage profilers among them) and `chip_smoke.py` and
+    finds neither `jax`, `flax`, `optax` nor `articulation3d_tpu` in
+    `sys.modules`, nor `matplotlib`, which the card's machine does not
+    have;
   * no import statement in the port or in `chip_smoke.py` names them;
   * entry points called without a device run on the card, and raise where
     there is none;
@@ -55,6 +56,7 @@ _DATA_EVAL_MODULES = ("utils.rle", "utils.vocap", "utils.tables", "data.mapper",
 _SLICE7_MODULES = ("export.primitives", "export.transforms", "vis.render", "vis.misc",
                    "parallel.dist", "parallel.mesh", "evaluation.goldens",
                    "compare_goldens")
+_PROFILER_MODULES = ("profiling", "profile_inference", "profile_depth", "profile_train")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -67,7 +69,7 @@ def test_importing_the_port_loads_no_jax():
     imported = out.stdout.split("IMPORTED=")[1].split("\n")[0].split(",")
     for m in _TRAIN_MODULES:
         assert f"articulation3d_tpu_torch.train.{m}" in imported, m
-    for m in _CLI_MODULES + _DATA_EVAL_MODULES + _SLICE7_MODULES:
+    for m in _CLI_MODULES + _DATA_EVAL_MODULES + _SLICE7_MODULES + _PROFILER_MODULES:
         assert f"articulation3d_tpu_torch.{m}" in imported, m
 
 
@@ -79,7 +81,7 @@ def test_no_import_statement_names_jax():
     assert {f"{m}.py" for m in _TRAIN_MODULES} <= {f.name for f in files
                                                    if f.parent.name == "train"}
     names = {str(f.relative_to(PORT))[:-3].replace("/", ".") for f in files if PORT in f.parents}
-    assert set(_DATA_EVAL_MODULES + _SLICE7_MODULES) <= names
+    assert set(_DATA_EVAL_MODULES + _SLICE7_MODULES + _PROFILER_MODULES) <= names
     for f in files:
         assert not pat.search(f.read_text()), f
 
