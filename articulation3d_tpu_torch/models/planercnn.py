@@ -40,6 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from .. import tracing
 from ..config import Config
 from ..ops.roi_align import multilevel_roi_align
 from ..ops.roi_align_cuda import (multilevel_roi_align_cuda,
@@ -163,81 +164,79 @@ class PlaneRCNN(nn.Module):
         cfg = self.config
         mcfg = cfg.model
         h, w = cfg.input.height, cfg.input.width
-        feats = self.features(images)
-        roi_feats = self.roi_features(feats)
+        with tracing.span("model.backbone"):
+            feats = self.features(images)
+            roi_feats = self.roi_features(feats)
         pool_valid: Dict[str, torch.Tensor] = {}
         proposals = None
 
-        if gt_boxes is not None:
-            dets = {"boxes": gt_boxes, "scores": gt_valid.to(torch.float32),
-                    "classes": gt_classes, "valid": gt_valid}
-        else:
-            with self._autocast(images.device):
+        if gt_boxes is None:
+            with tracing.span("model.rpn"), self._autocast(images.device):
                 proposals = self.proposal_generator(feats, image_height=h,
                                                     image_width=w)
-            b, k = proposals["boxes"].shape[:2]
-            pooled = self._pool(roi_feats, proposals["boxes"],
-                                resolution=mcfg.box_head.pooler_resolution,
-                                sampling_ratio=mcfg.box_head.pooler_sampling_ratio,
-                                aligned=True, valid=proposals["valid"])
-            pool_valid["box"] = proposals["valid"].sum(dim=1)
-            with self._autocast(images.device):
-                x = self.roi_heads.box_head(pooled.reshape(b * k, *pooled.shape[2:]))
-            scores, deltas = self.roi_heads.box_predictor(x)
-            dets = fast_rcnn_inference(
-                scores.reshape(b, k, -1), deltas.reshape(b, k, -1),
-                proposals["boxes"], proposals["valid"], image_height=h,
-                image_width=w, cfg=mcfg.roi_heads,
-                bbox_reg_weights=mcfg.box_head.bbox_reg_weights)
+        with tracing.span("model.roi_heads"):
+            if gt_boxes is not None:
+                dets = {"boxes": gt_boxes, "scores": gt_valid.to(torch.float32),
+                        "classes": gt_classes, "valid": gt_valid}
+            else:
+                b, k = proposals["boxes"].shape[:2]
+                with tracing.span("roi_heads.box_pool"):
+                    pooled = self._pool(roi_feats, proposals["boxes"],
+                                        resolution=mcfg.box_head.pooler_resolution,
+                                        sampling_ratio=mcfg.box_head.pooler_sampling_ratio,
+                                        aligned=True, valid=proposals["valid"])
+                    pool_valid["box"] = proposals["valid"].sum(dim=1)
+                with tracing.span("roi_heads.box_head"):
+                    with self._autocast(images.device):
+                        x = self.roi_heads.box_head(pooled.reshape(b * k, *pooled.shape[2:]))
+                    scores, deltas = self.roi_heads.box_predictor(x)
+                with tracing.span("roi_heads.class_nms"):
+                    dets = fast_rcnn_inference(
+                        scores.reshape(b, k, -1), deltas.reshape(b, k, -1),
+                        proposals["boxes"], proposals["valid"], image_height=h,
+                        image_width=w, cfg=mcfg.roi_heads,
+                        bbox_reg_weights=mcfg.box_head.bbox_reg_weights)
 
-        out = dict(dets)
-        b, d = dets["boxes"].shape[:2]
-        det_pool = dict(aligned=False, valid=dets["valid"])
-        shared = None
-        if (mcfg.share_detection_pool and mcfg.mask_on
-                and (mcfg.plane_on or mcfg.axis_on)
-                and mcfg.mask_head.pooler_resolution == mcfg.plane_head.pooler_resolution):
-            shared = self._pool(roi_feats, dets["boxes"],
-                                resolution=mcfg.plane_head.pooler_resolution,
-                                sampling_ratio=mcfg.plane_head.pooler_sampling_ratio,
-                                **det_pool)
-            pool_valid["shared"] = dets["valid"].sum(dim=1)
-        if mcfg.mask_on:
-            if shared is None:
-                mp = self._pool(roi_feats, dets["boxes"],
-                                resolution=mcfg.mask_head.pooler_resolution,
-                                sampling_ratio=mcfg.mask_head.pooler_sampling_ratio,
-                                **det_pool)
-                pool_valid["mask"] = dets["valid"].sum(dim=1)
-            else:
-                mp = shared
-            with self._autocast(images.device):
-                logits = self.roi_heads.mask_head(mp.reshape(b * d, *mp.shape[2:]))
-            probs = torch.sigmoid(logits)
-            if mcfg.mask_head.cls_agnostic:
-                probs = probs[:, 0]
-            else:
-                cls = dets["classes"].reshape(b * d).long()
-                probs = probs[torch.arange(b * d, device=probs.device), cls]
-            out["masks"] = probs.reshape(b, d, *probs.shape[1:])
+            out = dict(dets)
+            b, d = dets["boxes"].shape[:2]
 
-        if mcfg.plane_on or mcfg.axis_on:
-            if shared is None:
-                pp = self._pool(roi_feats, dets["boxes"],
-                                resolution=mcfg.plane_head.pooler_resolution,
-                                sampling_ratio=mcfg.plane_head.pooler_sampling_ratio,
-                                **det_pool)
-                pool_valid["plane"] = dets["valid"].sum(dim=1)
-            else:
-                pp = shared
-            flat = pp.reshape(b * d, *pp.shape[2:])
-            with self._autocast(images.device):
-                if mcfg.plane_on:
-                    out["planes"] = self.roi_heads.plane_head(flat).reshape(b, d, -1)
-                if mcfg.axis_on:
-                    rot, tran = self.roi_heads.axis_head(flat)
-                    out["rot_axis"] = rot.reshape(b, d, -1)
-                    out["tran_axis"] = tran.reshape(b, d, -1)
+            def pool(hcfg, stage: str) -> torch.Tensor:
+                with tracing.span("roi_heads.cascade_pool"):
+                    pooled = self._pool(roi_feats, dets["boxes"],
+                                        resolution=hcfg.pooler_resolution,
+                                        sampling_ratio=hcfg.pooler_sampling_ratio,
+                                        aligned=False, valid=dets["valid"])
+                    pool_valid[stage] = dets["valid"].sum(dim=1)
+                return pooled
+
+            shared = None
+            if (mcfg.share_detection_pool and mcfg.mask_on
+                    and (mcfg.plane_on or mcfg.axis_on)
+                    and mcfg.mask_head.pooler_resolution == mcfg.plane_head.pooler_resolution):
+                shared = pool(mcfg.plane_head, "shared")
+            if mcfg.mask_on:
+                mp = pool(mcfg.mask_head, "mask") if shared is None else shared
+                with tracing.span("roi_heads.mask"):
+                    with self._autocast(images.device):
+                        logits = self.roi_heads.mask_head(mp.reshape(b * d, *mp.shape[2:]))
+                    probs = torch.sigmoid(logits)
+                    if mcfg.mask_head.cls_agnostic:
+                        probs = probs[:, 0]
+                    else:
+                        cls = dets["classes"].reshape(b * d).long()
+                        probs = probs[torch.arange(b * d, device=probs.device), cls]
+                    out["masks"] = probs.reshape(b, d, *probs.shape[1:])
+
+            if mcfg.plane_on or mcfg.axis_on:
+                pp = pool(mcfg.plane_head, "plane") if shared is None else shared
+                flat = pp.reshape(b * d, *pp.shape[2:])
+                with tracing.span("roi_heads.plane_axis"), self._autocast(images.device):
+                    if mcfg.plane_on:
+                        out["planes"] = self.roi_heads.plane_head(flat).reshape(b, d, -1)
+                    if mcfg.axis_on:
+                        rot, tran = self.roi_heads.axis_head(flat)
+                        out["rot_axis"] = rot.reshape(b, d, -1)
+                        out["tran_axis"] = tran.reshape(b, d, -1)
 
         result: Dict[str, Any] = {
             "detections": Detections(
@@ -250,7 +249,7 @@ class PlaneRCNN(nn.Module):
             "proposals": proposals,
         }
         if mcfg.depth_on:
-            with self._autocast(images.device):
+            with tracing.span("model.depth"), self._autocast(images.device):
                 result["depth"] = self.depth_head(feats).to(torch.float32)
         if self._refines():
             # the reference's eval path with REFINE_ON: soft masks pasted

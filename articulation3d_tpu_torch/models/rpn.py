@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import tracing
 from ..config import AnchorConfig, RPNConfig
 from ..ops.box_ops import clip_boxes, decode_deltas, nonempty
 from ..ops.nms import NEG_INF, nms_mask, select_top, top_k
@@ -112,10 +113,14 @@ class RPN(nn.Module):
         self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios), cfg.head_convs)
 
     def anchors(self, shapes: Sequence[Tuple[int, int]], device) -> List[torch.Tensor]:
-        return [torch.from_numpy(anchors_for_level(
-            h, w, FPN_STRIDES[name], self.anchor_cfg.sizes[i][0],
-            self.anchor_cfg.aspect_ratios, self.anchor_cfg.offset)).to(device)
-            for i, (name, (h, w)) in enumerate(zip(self.cfg.in_features, shapes))]
+        out = []
+        for i, (name, (h, w)) in enumerate(zip(self.cfg.in_features, shapes)):
+            a = torch.from_numpy(anchors_for_level(
+                h, w, FPN_STRIDES[name], self.anchor_cfg.sizes[i][0],
+                self.anchor_cfg.aspect_ratios, self.anchor_cfg.offset))
+            with tracing.sync("anchors", device):
+                out.append(a.to(device))
+        return out
 
     def forward(self, features: Dict[str, torch.Tensor], *, image_height: int,
                 image_width: int, training: bool = False):
@@ -129,15 +134,16 @@ class RPN(nn.Module):
         anchor) order, the outputs `train.targets.rpn_losses` reads.
         """
         feats = [features[f] for f in self.cfg.in_features]
-        logits, deltas = self.rpn_head(feats)
+        with tracing.span("rpn.head"):
+            logits, deltas = self.rpn_head(feats)
         b = feats[0].shape[0]
         # (B, A, H, W) -> (B, H*W*A) and (B, A*4, H, W) -> (B, H*W*A, 4):
         # the (y, x, anchor) order of the anchors
         logits = [lg.permute(0, 2, 3, 1).reshape(b, -1) for lg in logits]
         deltas = [dl.permute(0, 2, 3, 1).reshape(b, -1, 4) for dl in deltas]
-        anchors = self.anchors([f.shape[2:] for f in feats], feats[0].device)
         cfg = self.cfg
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("rpn.select"):
+            anchors = self.anchors([f.shape[2:] for f in feats], feats[0].device)
             boxes, scores, valid = select_proposals(
                 [lg.detach() for lg in logits], [dl.detach() for dl in deltas],
                 anchors, image_height=image_height, image_width=image_width,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from .box_ops import pairwise_iou
 
 NEG_INF = -1e10
@@ -38,22 +39,26 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
     boxes (..., N, 4), scores (..., N), valid (..., N) bool -> (..., N) bool.
     """
-    n = boxes.shape[-2]
-    masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    order = torch.sort(-masked, dim=-1, stable=True).indices
-    sboxes = torch.gather(boxes, -2, order[..., None].expand(boxes.shape))
-    svalid = torch.gather(valid, -1, order)
+    tracing.count("nms.calls")
+    with tracing.span("nms"):
+        n = boxes.shape[-2]
+        masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        order = torch.sort(-masked, dim=-1, stable=True).indices
+        sboxes = torch.gather(boxes, -2, order[..., None].expand(boxes.shape))
+        svalid = torch.gather(valid, -1, order)
 
-    later = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)
-    sup = (pairwise_iou(sboxes, sboxes) > iou_threshold) & later
-    keep = svalid
-    for _ in range(n):
-        killed = (keep[..., :, None] & sup).any(dim=-2)
-        new = svalid & ~killed
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return torch.zeros_like(keep).scatter(-1, order, keep)
+        later = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)
+        sup = (pairwise_iou(sboxes, sboxes) > iou_threshold) & later
+        keep = svalid
+        for _ in range(n):
+            killed = (keep[..., :, None] & sup).any(dim=-2)
+            new = svalid & ~killed
+            with tracing.sync("nms", new):      # one host wait per sweep
+                same = torch.equal(new, keep)
+            if same:
+                break
+            keep = new
+        return torch.zeros_like(keep).scatter(-1, order, keep)
 
 
 def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,

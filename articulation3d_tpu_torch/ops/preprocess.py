@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from .. import tracing
+
 
 def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """cv2.resize(INTER_LINEAR)-compatible bilinear resize of (H, W, C) or
@@ -63,8 +65,10 @@ def preprocess_images(images: torch.Tensor,
     x = images.to(torch.float32)
     if x.shape[1] != height or x.shape[2] != width:
         x = resize_bilinear(x, height, width)
-    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(pixel_std, dtype=torch.float32, device=x.device)
+    with tracing.sync("preprocess", x):
+        mean = torch.tensor(pixel_mean, dtype=torch.float32, device=x.device)
+    with tracing.sync("preprocess", x):
+        std = torch.tensor(pixel_std, dtype=torch.float32, device=x.device)
     x = (x - mean) / std
     d = size_divisibility
     ph = (d - height % d) % d

@@ -52,6 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from .roi_align import _sample_coords, assign_boxes_to_levels, multilevel_roi_align
 
 MAX_P = 16    # output sizes the kernels' shared-memory arrays hold
@@ -544,7 +545,8 @@ def _forward_kernel(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     record = torch.empty((total, len(RECORD)), dtype=torch.int32, device=boxes.device)
     if total:
         _launch(features, boxes, valid, opts, record, out)
-        multilevel_roi_align_cuda.launches += 1
+        tracing.count("k1.launches")
+        tracing.count("k1.roi_slots", total)
     return out, record
 
 
@@ -572,9 +574,6 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
     bsz, n = boxes.shape[:2]
     out, _ = _forward_kernel(features, boxes, valid, kw)
     return out.reshape(bsz, n, output_size, output_size, -1)
-
-
-multilevel_roi_align_cuda.launches = 0
 
 
 def multilevel_roi_align_adjoint_cuda(g: torch.Tensor,
@@ -624,11 +623,9 @@ def multilevel_roi_align_adjoint_cuda(g: torch.Tensor,
                          device=g.device) for s in feat_shapes]
     if total:
         _launch_adj(g, boxes, record, kw, grads)
-        multilevel_roi_align_adjoint_cuda.launches += 1
+        tracing.count("k2.launches")
+        tracing.count("k2.roi_slots", total)
     return grads
-
-
-multilevel_roi_align_adjoint_cuda.launches = 0
 
 
 # --------------------------------------------------------------------------- #

@@ -20,12 +20,12 @@ predictions and depths are all-gathered, in frame order, to every rank.
 from __future__ import annotations
 
 import sys
-import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Config
 from ..models.planercnn import PlaneRCNN
 from ..ops.mask_paste import paste_masks
@@ -44,8 +44,9 @@ def pack_masks_bits(masks: torch.Tensor) -> torch.Tensor:
     if pad:
         masks = torch.nn.functional.pad(masks, (0, pad))
     grouped = masks.reshape(*masks.shape[:-1], (w + pad) // 8, 8).to(torch.uint8)
-    bits = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
-                        device=masks.device)
+    with tracing.sync("pack", masks):
+        bits = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                            device=masks.device)
     return (grouped * bits).sum(dim=-1, dtype=torch.uint8)
 
 
@@ -90,10 +91,12 @@ def make_inference_step(config: Config, model: PlaneRCNN,
 
     @torch.no_grad()
     def step(frames: torch.Tensor) -> Dict[str, torch.Tensor]:
-        images = preprocess_images(frames, config.input.pixel_mean,
-                                   config.input.pixel_std, height=h, width=w,
-                                   size_divisibility=config.input.size_divisibility)
-        out = model.inference(images)
+        with tracing.span("step.preprocess"):
+            images = preprocess_images(frames, config.input.pixel_mean,
+                                       config.input.pixel_std, height=h, width=w,
+                                       size_divisibility=config.input.size_divisibility)
+        with tracing.span("step.model"):
+            out = model.inference(images)
         det = out["detections"]
         boxes = det.boxes
         if (out_h, out_w) != (h, w):
@@ -116,23 +119,26 @@ def make_inference_step(config: Config, model: PlaneRCNN,
             # the refine head's masks, already at image resolution
             full = out["full_masks"] >= 0.5
         elif det.masks is not None:
-            full = torch.stack([
-                paste_masks(det.masks[i], boxes[i], det.valid[i], out_h, out_w,
-                            threshold=mcfg.mask_head.mask_threshold,
-                            nms=mcfg.mask_head.nms)
-                for i in range(boxes.shape[0])])
-        if full is not None:
-            result["full_masks_packed"] = pack_masks_bits(full)
-        if "depth" in out:
-            depth = out["depth"]
-            if (det.planes is not None and full is not None
-                    and tuple(depth.shape[1:]) == (out_h, out_w)):
+            with tracing.span("step.paste"):
+                full = torch.stack([
+                    paste_masks(det.masks[i], boxes[i], det.valid[i], out_h, out_w,
+                                threshold=mcfg.mask_head.mask_threshold,
+                                nms=mcfg.mask_head.nms)
+                    for i in range(boxes.shape[0])])
+        depth = out.get("depth")
+        if (depth is not None and det.planes is not None and full is not None
+                and tuple(depth.shape[1:]) == (out_h, out_w)):
+            with tracing.span("step.override"):
                 result["planes"] = torch.stack([
                     override_plane_offsets(result["planes"][i], full[i], depth[i], rays)
                     for i in range(boxes.shape[0])])
-            # u16 millimetres on the wire (the source data's own depth
-            # resolution); float->int truncates as the JAX uint16 cast does
-            result["depth_mm"] = (depth * 1000.0).clamp(0.0, 65535.0).to(torch.int32)
+        with tracing.span("step.pack"):
+            if full is not None:
+                result["full_masks_packed"] = pack_masks_bits(full)
+            if depth is not None:
+                # u16 millimetres on the wire (the source data's own depth
+                # resolution); float->int truncates as the JAX uint16 cast does
+                result["depth_mm"] = (depth * 1000.0).clamp(0.0, 65535.0).to(torch.int32)
         return result
 
     return step
@@ -170,14 +176,15 @@ class VideoPipeline:
         repeats of their last frame.  verbose: per-chunk wall time on
         stderr (the first includes the kernel build and cuDNN autotuning).
         `chunk_walls` and `pool_valid` describe this rank's share."""
-        if not self.distributed:
-            return self._run(frames, verbose)
-        per = -(-len(frames) // process_count())
-        lo = process_index() * per
-        mine = self._run(frames[lo:lo + per], verbose)
-        shares = gather_predictions([(mine, self.depths)])
-        self.depths = [d for _, depths in shares for d in depths]
-        return [p for preds, _ in shares for p in preds]
+        with tracing.span("pipeline.run", call=True):
+            if not self.distributed:
+                return self._run(frames, verbose)
+            per = -(-len(frames) // process_count())
+            lo = process_index() * per
+            mine = self._run(frames[lo:lo + per], verbose)
+            shares = gather_predictions([(mine, self.depths)])
+            self.depths = [d for _, depths in shares for d in depths]
+            return [p for preds, _ in shares for p in preds]
 
     def _run(self, frames: Sequence[np.ndarray],
              verbose: bool) -> List[FramePrediction]:
@@ -187,13 +194,24 @@ class VideoPipeline:
         self.pool_valid = {}
         bs = self.batch_size
         for start in range(0, len(frames), bs):
-            t0 = time.perf_counter()
-            chunk = list(frames[start:start + bs])
-            n_real = len(chunk)
-            chunk += [chunk[-1]] * (bs - n_real)
-            batch = torch.from_numpy(np.stack(chunk)).to(self.device)
-            out = {k: v.cpu().numpy() for k, v in self.step(batch).items()}
-            self.chunk_walls.append(time.perf_counter() - t0)
+            with tracing.span("pipeline.upload", timed=True) as upload:
+                chunk = list(frames[start:start + bs])
+                n_real = len(chunk)
+                chunk += [chunk[-1]] * (bs - n_real)
+                batch = torch.from_numpy(np.stack(chunk))
+                with tracing.sync("upload", self.device):
+                    batch = batch.to(self.device)
+            with tracing.span("pipeline.step"):
+                dev_out = self.step(batch)
+            with tracing.span("pipeline.readback", timed=True) as readback:
+                out = {}
+                for k, v in dev_out.items():
+                    with tracing.sync("readback", v):
+                        out[k] = v.cpu().numpy()
+                    tracing.count("readback.bytes", out[k].nbytes)
+            del dev_out
+            # step and readback: from the upload's start to the readback's end
+            self.chunk_walls.append((readback.end_ns - upload.start_ns) * 1e-9)
             if verbose:
                 print(f"#   chunk {len(self.chunk_walls)}: "
                       f"{self.chunk_walls[-1]:.3f}s ({n_real} frames)",
@@ -201,15 +219,18 @@ class VideoPipeline:
             for k in [k for k in out if k.startswith("pool_valid_")]:
                 name = k[len("pool_valid_"):]
                 self.pool_valid[name] = self.pool_valid.get(name, 0) + int(out.pop(k).sum())
-            if "full_masks_packed" in out:
-                out["full_masks"] = np.unpackbits(out.pop("full_masks_packed"),
-                                                  axis=-1, count=self.output_width
-                                                  ).astype(bool)
-            if "depth_mm" in out:
-                out["depth"] = out.pop("depth_mm").astype(np.uint16).astype(np.float32) / 1000.0
-            for i in range(n_real):
-                preds.append(self._to_frame_prediction(out, i))
-                depths.append(out["depth"][i] if "depth" in out else None)
+            with tracing.span("pipeline.unpack"):
+                if "full_masks_packed" in out:
+                    out["full_masks"] = np.unpackbits(out.pop("full_masks_packed"),
+                                                      axis=-1, count=self.output_width
+                                                      ).astype(bool)
+                if "depth_mm" in out:
+                    out["depth"] = (out.pop("depth_mm").astype(np.uint16)
+                                    .astype(np.float32) / 1000.0)
+            with tracing.span("pipeline.frame_predictions"):
+                for i in range(n_real):
+                    preds.append(self._to_frame_prediction(out, i))
+                    depths.append(out["depth"][i] if "depth" in out else None)
         if verbose and len(self.chunk_walls) > 1:
             steady = sum(self.chunk_walls[1:]) / (len(self.chunk_walls) - 1)
             print(f"#   steady-state: {steady:.3f}s/chunk ({bs / steady:.1f} "

@@ -168,9 +168,10 @@ non-zero exit):
      `profile_depth` at batch 8, `profile_train` at stage 1 with ims 16
      and at stage 3 with ims 8; each CLI prints its table under the card's
      name and power limit.  A hook around each row (`_StageProbe`) prints
-     K1's and K2's calls per run (their wrappers' counters over the timed
-     runs) and one more run under torch.profiler (kernel launches, device
-     busy time, K1's and K2's device time), holds K1 against its plain
+     K1's and K2's calls per run (the recorder's "k1.launches" and
+     "k2.launches" over the timed runs) and one more run under
+     torch.profiler (kernel launches, device busy time, K1's and K2's
+     device time), holds K1 against its plain
      version on that run's pool inputs, and the training pool's kernel
      rows against its gather rows (forward and gradients); it fails if a
      row has no time, if a kernel row does not call K1 (the inference
@@ -212,6 +213,13 @@ FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 STRIDES = (4, 8, 16, 32)
 PRESET_CHUNKS = 25             # chunks of 8 frames per timed turn of "[serving-preset]"
 POOLS = {"box": (7, 0, True), "mask": (14, 2, False), "plane": (14, 0, False)}
+
+
+def _recording():
+    """`tracing.recording()`: the block's K1 and K2 launches are the
+    recorder's counters "k1.launches" and "k2.launches"."""
+    from articulation3d_tpu_torch import tracing
+    return tracing.recording()
 
 
 def _log(*a):
@@ -560,12 +568,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prologue_calls = _count_calls(rac, "_prepare")
-    rac.multilevel_roi_align_cuda.launches = 0
-    try:
-        preds = pipe.run(frames, verbose=True)
-    finally:
-        prologue_calls.restore()
-    launches = rac.multilevel_roi_align_cuda.launches
+    with _recording() as rec:
+        try:
+            preds = pipe.run(frames, verbose=True)
+        finally:
+            prologue_calls.restore()
+    launches = rec.counter("k1.launches")
     _log(f"[main] model dtype {cfg.model.dtype}, pooler {cfg.model.roi_pooler_impl}, "
          f"batch 8, 16 frames 480x640; kernel launches {launches}; torch prologue "
          f"(_prepare) calls {prologue_calls.n}; valid ROIs per pool stage {pipe.pool_valid}")
@@ -653,11 +661,11 @@ def main() -> int:
     for impl in ("cuda", "torch"):
         model32.config = cfg32.replace(model=dataclasses.replace(
             cfg32.model, roi_pooler_impl=impl))
-        rac.multilevel_roi_align_cuda.launches = 0
-        res = model32.inference(images)
-        outs[impl] = res["detections"]
+        with _recording() as rec:
+            res = model32.inference(images)
+            outs[impl] = res["detections"]
         _log(f"[path-parity] {impl} pooler: kernel launches "
-             f"{rac.multilevel_roi_align_cuda.launches}")
+             f"{rec.counter('k1.launches')}")
     a, b = outs["cuda"], outs["torch"]
     n_ref = n_match = 0
     box_err, head_err = 0.0, {}
@@ -1022,14 +1030,14 @@ def phase_artefacts(rac, pipe, frames, card) -> int:
         return write_video(path, frames, **kw)
 
     vio.write_video = recording
-    rac.multilevel_roi_align_cuda.launches = 0
-    try:
-        t0 = time.perf_counter()
-        walls = infer.run_video(pipe, frames, 30.0, out, conf_threshold=0.0, save_obj=True)
-        wall = time.perf_counter() - t0
-    finally:
-        vio.write_video = write_video
-    launches = rac.multilevel_roi_align_cuda.launches
+    with _recording() as rec:
+        try:
+            t0 = time.perf_counter()
+            walls = infer.run_video(pipe, frames, 30.0, out, conf_threshold=0.0, save_obj=True)
+            wall = time.perf_counter() - t0
+        finally:
+            vio.write_video = write_video
+    launches = rec.counter("k1.launches")
     mp4 = os.path.join(out, "output.mp4")
     mp4_bytes = os.path.getsize(mp4) if os.path.exists(mp4) else 0
     sizes = {name: os.path.getsize(os.path.join(out, "frame_0000", name))
@@ -1140,13 +1148,12 @@ def phase_training(rac, card) -> dict:
          f"x0.01, frozen stem conv x1/256; one synthetic batch of {sc.ims_per_batch}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rac.multilevel_roi_align_cuda.launches = 0
-    rac.multilevel_roi_align_adjoint_cuda.launches = 0
-    t0 = time.perf_counter()
-    recs = trainer.train(2) + trainer.train(22)
-    wall = time.perf_counter() - t0
-    k1 = rac.multilevel_roi_align_cuda.launches
-    k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+    with _recording() as rec:
+        t0 = time.perf_counter()
+        recs = trainer.train(2) + trainer.train(22)
+        wall = time.perf_counter() - t0
+    k1 = rec.counter("k1.launches")
+    k2 = rec.counter("k2.launches")
     peak = torch.cuda.max_memory_allocated()
     n = len(recs)
     totals = [r["total_loss"] for r in recs]
@@ -1360,14 +1367,13 @@ def phase_training_parity(rac, train) -> None:
             model.zero_grad(set_to_none=True)
             store = []
             orig = _record_train_pool(pmod, store)
-            rac.multilevel_roi_align_cuda.launches = 0
-            rac.multilevel_roi_align_adjoint_cuda.launches = 0
-            try:
-                gen = torch.Generator(device="cuda").manual_seed(7)
-                losses = compute_losses(model, batch, gen)
-                sum(losses.values()).backward()
-            finally:
-                pmod.multilevel_roi_align_train = orig
+            with _recording() as rec:
+                try:
+                    gen = torch.Generator(device="cuda").manual_seed(7)
+                    losses = compute_losses(model, batch, gen)
+                    sum(losses.values()).backward()
+                finally:
+                    pmod.multilevel_roi_align_train = orig
             torch.cuda.synchronize()
             item = store[0]
             boxes, valid = item["boxes"], item["kw"]["valid"]
@@ -1388,8 +1394,8 @@ def phase_training_parity(rac, train) -> None:
                                                 kw["sampling_ratio"], kw["aligned"]).sum()),)
             _log(f"[train-parity] {tag}, {impl} pooler, float32, "
                  f"{batch['images'].shape[0]} images: K1 launches "
-                 f"{rac.multilevel_roi_align_cuda.launches}, K2 launches "
-                 f"{rac.multilevel_roi_align_adjoint_cuda.launches}; losses "
+                 f"{rec.counter('k1.launches')}, K2 launches "
+                 f"{rec.counter('k2.launches')}; losses "
                  f"{dict((k, round(v, 6)) for k, v in res[impl][0].items())}{note}")
         (la, ga, ba, ia, moved), (lb, gb, bb, ib) = res["cuda"], res["torch"]
         assert bool((ba == bb).all()), "the two runs sampled different ROIs"
@@ -1763,13 +1769,12 @@ def phase_recipe(rac, card, phase5) -> dict:
     launches = {"k1": 0, "k2": 0}
 
     def count(fn):
-        rac.multilevel_roi_align_cuda.launches = 0
-        rac.multilevel_roi_align_adjoint_cuda.launches = 0
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        k1 = rac.multilevel_roi_align_cuda.launches
-        k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+        with _recording() as rec:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+        k1 = rec.counter("k1.launches")
+        k2 = rec.counter("k2.launches")
         launches["k1"] += k1
         launches["k2"] += k2
         return res, k1, k2, time.perf_counter() - t0
@@ -2229,9 +2234,9 @@ def phase_refine_serve(rac, card) -> dict:
          f"instance logits +2, the depth head's BatchNorm statistics from the first 8 frames")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rac.multilevel_roi_align_cuda.launches = 0
-    preds = pipe.run(frames, verbose=True)
-    k1 = rac.multilevel_roi_align_cuda.launches
+    with _recording() as rec:
+        preds = pipe.run(frames, verbose=True)
+    k1 = rec.counter("k1.launches")
     peak = torch.cuda.max_memory_allocated()
     assert len(preds) == 16 and k1 == 3 * 2, (len(preds), k1)
     for pr in preds:
@@ -2387,16 +2392,15 @@ def phase_refine_train(rac, card) -> dict:
          f"random_state_dict(0)'s refine keys; one synthetic batch")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rac.multilevel_roi_align_cuda.launches = 0
-    rac.multilevel_roi_align_adjoint_cuda.launches = 0
-    pools = _record_pools(5)          # the first step's three sampled and two cascade pools
-    try:
-        recs = trainer.train(2)
-    finally:
-        pools.restore()
-    recs += trainer.train(12)
-    k1 = rac.multilevel_roi_align_cuda.launches
-    k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+    with _recording() as rec:
+        pools = _record_pools(5)          # the first step's three sampled and two cascade pools
+        try:
+            recs = trainer.train(2)
+        finally:
+            pools.restore()
+        recs += trainer.train(12)
+    k1 = rec.counter("k1.launches")
+    k2 = rec.counter("k2.launches")
     peak = torch.cuda.max_memory_allocated()
     cascade = [kw for _, _, kw in pools.calls[3:]]
     assert len(pools.calls) == 5 and all(kw["training"] and kw["resolution"] == 14
@@ -2442,13 +2446,13 @@ def phase_drpn(rac, card) -> dict:
     pipe = VideoPipeline(cfg, model, batch_size=8, conf_threshold=0.0)
     rs = np.random.RandomState(3)
     frames = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(8)]
-    rac.multilevel_roi_align_cuda.launches = 0
-    pools = _record_pools(3)
-    try:
-        preds = pipe.run(frames)
-    finally:
-        pools.restore()
-    k1 = rac.multilevel_roi_align_cuda.launches
+    with _recording() as rec:
+        pools = _record_pools(3)
+        try:
+            preds = pipe.run(frames)
+        finally:
+            pools.restore()
+    k1 = rec.counter("k1.launches")
     assert len(preds) == 8 and all(len(p) > 0 for p in preds) and k1 == 3, k1
     err = _main_path_err(rac, pools.calls, tag="drpn-pools")
     del pipe, model, pools
@@ -2581,21 +2585,20 @@ def phase_ddp1(rac, card, phase5) -> dict:
         again.train(2)
         spread = _params_agree(_param_samples(again.model), after_plain, before, rel=1e-2)
         del again
-        rac.multilevel_roi_align_cuda.launches = 0
-        rac.multilevel_roi_align_adjoint_cuda.launches = 0
-        pools = _record_pools(1)
-        store_pool = []
-        orig = _record_train_pool(pmod, store_pool)
-        try:
-            recs = wrapped.train(2)
-        finally:
-            pools.restore()
-            pmod.multilevel_roi_align_train = orig
-        after_wrapped = _param_samples(wrapped.model)
-        recs += wrapped.train(14)
-        torch.cuda.synchronize()
-        k1 = rac.multilevel_roi_align_cuda.launches
-        k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+        with _recording() as rec:
+            pools = _record_pools(1)
+            store_pool = []
+            orig = _record_train_pool(pmod, store_pool)
+            try:
+                recs = wrapped.train(2)
+            finally:
+                pools.restore()
+                pmod.multilevel_roi_align_train = orig
+            after_wrapped = _param_samples(wrapped.model)
+            recs += wrapped.train(14)
+            torch.cuda.synchronize()
+        k1 = rec.counter("k1.launches")
+        k2 = rec.counter("k2.launches")
         assert k1 == 14 and k2 == 14, (k1, k2)
         recs_plain += plain.train(14)
         loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
@@ -2647,34 +2650,33 @@ def phase_remat(rac, card, phase5) -> dict:
 
     base = _stage1_config().model.resnet
     runs = []
-    rac.multilevel_roi_align_cuda.launches = 0
-    rac.multilevel_roi_align_adjoint_cuda.launches = 0
-    for remat in (False, True, False, True):
-        trainer, _ = _stage1_trainer(16, resnet=dataclasses.replace(base, remat=remat))
-        assert trainer.model.backbone.bottom_up.cfg.remat == remat
-        before = _param_samples(trainer.model)
+    with _recording() as rec:
+        for remat in (False, True, False, True):
+            trainer, _ = _stage1_trainer(16, resnet=dataclasses.replace(base, remat=remat))
+            assert trainer.model.backbone.bottom_up.cfg.remat == remat
+            before = _param_samples(trainer.model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            recs = trainer.train(2)
+            after = _param_samples(trainer.model)
+            recs += trainer.train(12)
+            torch.cuda.synchronize()
+            runs.append(dict(remat=remat, before=before, after=after, records=_stage_records(recs),
+                             peak=torch.cuda.max_memory_allocated(), steps_per_s=_rate(recs)))
+            if remat and len(runs) == 4:
+                pools = _record_pools(1)
+                store_pool = []
+                orig = _record_train_pool(pmod, store_pool)
+                try:
+                    trainer.train(trainer.iter + 1)
+                finally:
+                    pools.restore()
+                    pmod.multilevel_roi_align_train = orig
+            del trainer
+            torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        recs = trainer.train(2)
-        after = _param_samples(trainer.model)
-        recs += trainer.train(12)
-        torch.cuda.synchronize()
-        runs.append(dict(remat=remat, before=before, after=after, records=_stage_records(recs),
-                         peak=torch.cuda.max_memory_allocated(), steps_per_s=_rate(recs)))
-        if remat and len(runs) == 4:
-            pools = _record_pools(1)
-            store_pool = []
-            orig = _record_train_pool(pmod, store_pool)
-            try:
-                trainer.train(trainer.iter + 1)
-            finally:
-                pools.restore()
-                pmod.multilevel_roi_align_train = orig
-        del trainer
-        torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    k1 = rac.multilevel_roi_align_cuda.launches
-    k2 = rac.multilevel_roi_align_adjoint_cuda.launches
+    k1 = rec.counter("k1.launches")
+    k2 = rec.counter("k2.launches")
     off, on, off2 = runs[0], runs[1], runs[2]
     assert all(np.array_equal(r["before"][n], off["before"][n]) for r in runs[1:]
                for n in off["before"])
@@ -2834,7 +2836,6 @@ def _ranks_payload(distributed: bool) -> dict:
     import torch
     import torch.distributed as dist
 
-    from articulation3d_tpu_torch.ops import roi_align_cuda as rac
     from articulation3d_tpu_torch.parallel import dist as pdist
     from articulation3d_tpu_torch.train.train_step import train_step
     from articulation3d_tpu_torch.video.pipeline import VideoPipeline
@@ -2844,12 +2845,11 @@ def _ranks_payload(distributed: bool) -> dict:
     out["before"] = _param_samples(trainer.model)
     if distributed:
         out["step_fn"] = trainer.step_fn.__name__
-        rac.multilevel_roi_align_cuda.launches = 0
-        rac.multilevel_roi_align_adjoint_cuda.launches = 0
-        recs = trainer.train(2)
-        torch.cuda.synchronize()
-        out.update(k1=rac.multilevel_roi_align_cuda.launches,
-                   k2=rac.multilevel_roi_align_adjoint_cuda.launches)
+        with _recording() as rec:
+            recs = trainer.train(2)
+            torch.cuda.synchronize()
+        out.update(k1=rec.counter("k1.launches"),
+                   k2=rec.counter("k2.launches"))
     else:
         recs = _emulated_sharded_steps(trainer, batch, 2)
     out["sharded"] = {"records": _stage_records(recs), "after": _param_samples(trainer.model)}
@@ -3202,12 +3202,12 @@ def phase_goldens(rac, card) -> dict:
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, weights)
     reports, walls = {}, {}
     for pooler in ("torch", "cuda"):
-        rac.multilevel_roi_align_cuda.launches = 0
-        t0 = time.perf_counter()
-        reports[pooler] = cli.main(["--goldens", path, "--weights", weights,
-                                    "--pooler", pooler])
-        walls[pooler] = time.perf_counter() - t0
-        reports[pooler]["k1"] = rac.multilevel_roi_align_cuda.launches
+        with _recording() as rec:
+            t0 = time.perf_counter()
+            reports[pooler] = cli.main(["--goldens", path, "--weights", weights,
+                                        "--pooler", pooler])
+            walls[pooler] = time.perf_counter() - t0
+        reports[pooler]["k1"] = rec.counter("k1.launches")
     r, k = reports["torch"], reports["cuda"]
     keys = ("det_match_frac", "det_box_max_err", "det_score_max_err", "masks_max_err",
             "planes_max_err", "feat_p2_max_err", "proposal_top100_match_frac")
@@ -3250,11 +3250,11 @@ def _oracle_goldens(rac, card, out) -> dict:
         for name in ("golden_oracle_biased_480x640.npz", "golden_oracle_biased_128x160.npz"):
             path = os.path.join(ROOT, "tests", "fixtures", name)
             for pooler in ("cuda", "torch"):
-                rac.multilevel_roi_align_cuda.launches = 0
-                t0 = time.perf_counter()
-                r = cli.main(["--goldens", path, "--weights", weights, "--pooler", pooler])
-                wall = time.perf_counter() - t0
-                k1 = rac.multilevel_roi_align_cuda.launches
+                with _recording() as rec:
+                    t0 = time.perf_counter()
+                    r = cli.main(["--goldens", path, "--weights", weights, "--pooler", pooler])
+                    wall = time.perf_counter() - t0
+                k1 = rec.counter("k1.launches")
                 _log(f"[goldens] oracle {name} through the {pooler} route on the card: "
                      f"{ {key: round(float(r[key]), 6) for key in keys} } ({wall:.2f} s, K1 "
                      f"{k1}) ({card})")
@@ -3462,11 +3462,11 @@ def phase_serving_preset(rac, card) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        rac.multilevel_roi_align_cuda.launches = 0
-        t0 = time.perf_counter()
-        preds = pipes[name].run(stream)
-        run_wall = time.perf_counter() - t0
-        k1 = rac.multilevel_roi_align_cuda.launches
+        with _recording() as rec:
+            t0 = time.perf_counter()
+            preds = pipes[name].run(stream)
+            run_wall = time.perf_counter() - t0
+        k1 = rec.counter("k1.launches")
         assert k1 == 3 * PRESET_CHUNKS, (name, k1)
         assert len(preds) == len(stream) and all(len(p) > 0 for p in preds)
         cap = cfgs[name].model.roi_heads.detections_per_image
@@ -3602,15 +3602,14 @@ class _StageProbe:
         from torch.profiler import ProfilerActivity, profile
 
         from articulation3d_tpu_torch.profiling import reduce_sum
-        fwd, adj = self.rac.multilevel_roi_align_cuda, self.rac.multilevel_roi_align_adjoint_cuda
-        c1, c2 = fwd.launches, adj.launches
-        dt = timed()
-        d1, d2 = fwd.launches - c1, adj.launches - c2
+        with _recording() as rec:
+            dt = timed()
+        d1, d2 = rec.counter("k1.launches"), rec.counter("k2.launches")
         assert d1 % self.runs == 0 and d2 % self.runs == 0, (self.tag, name, d1, d2)
         pools = _record_pools(16)
         torch.cuda.synchronize()
         try:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with _recording() as profiled, profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 out = fn()
                 reduce_sum(out).item()
@@ -3618,8 +3617,8 @@ class _StageProbe:
                 torch.cuda.synchronize()
         finally:
             pools.restore()
-        self.k1 += fwd.launches - c1
-        self.k2 += adj.launches - c2
+        self.k1 += d1 + profiled.counter("k1.launches")
+        self.k2 += d2 + profiled.counter("k2.launches")
         busy, by_name, n = _device_time(prof)
         k_ms = {k: sum(v for key, v in by_name.items() if f"roi_align_{k}" in key) / 1e3
                 for k in ("fwd", "adj")}

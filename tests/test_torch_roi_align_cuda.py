@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from articulation3d_tpu_torch import tracing
 from articulation3d_tpu_torch.ops import roi_align_cuda as rac
 
 STRIDES = (4, 8, 16, 32)
@@ -52,9 +53,10 @@ def test_cuda_kernel_matches_plain_version(p, sr, aligned, dtype):
     valid = torch.rand(boxes.shape[:2], generator=gen, device="cuda") > 0.2
     kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned,
               valid=valid)
-    before = rac.multilevel_roi_align_cuda.launches
-    got = rac.multilevel_roi_align_cuda(feats, boxes, **kw)
-    assert rac.multilevel_roi_align_cuda.launches == before + 1
+    with tracing.recording() as rec:
+        got = rac.multilevel_roi_align_cuda(feats, boxes, **kw)
+    assert rec.counter("k1.launches") == 1
+    assert rec.counter("k1.roi_slots") == boxes.shape[0] * boxes.shape[1]
     want = rac.multilevel_roi_align_separable(feats, boxes, **kw)
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 1e-2
@@ -108,9 +110,10 @@ def test_cuda_adjoint_matches_plain_version_and_transposes_k1(p, sr, aligned):
     assert bool((record[:, 0].long() == base).all())
     assert record[-2:, 0].tolist() == [0, 1]   # the wide 9:1 sliver stays on p2
     g = torch.randn((levels.numel(), p, p, 256), generator=gen, device="cuda")
-    before = rac.multilevel_roi_align_adjoint_cuda.launches
-    got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **kw)
-    assert rac.multilevel_roi_align_adjoint_cuda.launches == before + 1
+    with tracing.recording() as rec:
+        got = rac.multilevel_roi_align_adjoint_cuda(g, shapes, boxes, record, **kw)
+    assert rec.counter("k2.launches") == 1
+    assert rec.counter("k2.roi_slots") == boxes.shape[0] * boxes.shape[1]
     want = rac.multilevel_roi_align_adjoint_separable(g, shapes, pr)
     fwd = rac.multilevel_roi_align_cuda(feats, boxes, valid=valid, **kw)
     torch.cuda.synchronize()
@@ -140,12 +143,11 @@ def test_cuda_train_pool_matches_plain_versions(p, sr, aligned):
     g = torch.randn((*boxes.shape[:2], p, p, 256), generator=gen, device="cuda")
     fs = [f.clone().requires_grad_(True) for f in feats]
     bx = boxes.clone().requires_grad_(True)
-    k1, k2 = rac.multilevel_roi_align_cuda.launches, \
-        rac.multilevel_roi_align_adjoint_cuda.launches
-    out = rac.multilevel_roi_align_train(fs, bx, valid=valid, impl="cuda", **kw)
-    out.backward(g)
-    assert rac.multilevel_roi_align_cuda.launches == k1 + 1
-    assert rac.multilevel_roi_align_adjoint_cuda.launches == k2 + 1
+    with tracing.recording() as rec:
+        out = rac.multilevel_roi_align_train(fs, bx, valid=valid, impl="cuda", **kw)
+        out.backward(g)
+    assert rec.counter("k1.launches") == 1
+    assert rec.counter("k2.launches") == 1
     shapes = [f.shape for f in feats]
     pr = rac._prepare(shapes, boxes, valid=valid, **kw)
     ref_out = rac.multilevel_roi_align_separable(feats, boxes, valid=valid, **kw)
