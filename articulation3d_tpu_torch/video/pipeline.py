@@ -7,8 +7,9 @@ Counterpart of `articulation3d_tpu/video/pipeline.py`:
 
 (with the refine head on, its full-image masks take the place of the
 pasted ones), all on the device; only the detections, packed masks and u16-millimetre
-depth come back to the host, where confidence trimming builds the
-`FramePrediction`s.  The depth override reproduces the reference's
+depth come back to the host, where confidence trimming picks each frame's
+detections and only their masks are unpacked, into the `FramePrediction`s.
+The depth override reproduces the reference's
 `PlaneRCNN_Branch.process`: EVAL-intrinsics rays (f = 571.623718), offset =
 mean of n . xyz inside each pasted mask; empty masks keep their plane.
 
@@ -220,16 +221,26 @@ class VideoPipeline:
                 name = k[len("pool_valid_"):]
                 self.pool_valid[name] = self.pool_valid.get(name, 0) + int(out.pop(k).sum())
             with tracing.span("pipeline.unpack"):
-                if "full_masks_packed" in out:
-                    out["full_masks"] = np.unpackbits(out.pop("full_masks_packed"),
-                                                      axis=-1, count=self.output_width
-                                                      ).astype(bool)
+                # trim first, then unpack only the kept rows: each frame's
+                # masks are written once, into the array it keeps
+                packed = out.pop("full_masks_packed", None)
+                kept = []
+                for i in range(n_real):
+                    idx = np.nonzero(out["valid"][i]
+                                     & (out["scores"][i] > self.conf_threshold))[0]
+                    masks = None
+                    if packed is not None:
+                        masks = np.unpackbits(packed[i][idx], axis=-1,
+                                              count=self.output_width).view(bool)
+                        tracing.count("unpack.rows", len(idx))
+                        tracing.count("unpack.slots", packed.shape[1])
+                    kept.append((idx, masks))
                 if "depth_mm" in out:
                     out["depth"] = (out.pop("depth_mm").astype(np.uint16)
                                     .astype(np.float32) / 1000.0)
             with tracing.span("pipeline.frame_predictions"):
-                for i in range(n_real):
-                    preds.append(self._to_frame_prediction(out, i))
+                for i, (idx, masks) in enumerate(kept):
+                    preds.append(self._to_frame_prediction(out, i, idx, masks))
                     depths.append(out["depth"][i] if "depth" in out else None)
         if verbose and len(self.chunk_walls) > 1:
             steady = sum(self.chunk_walls[1:]) / (len(self.chunk_walls) - 1)
@@ -239,15 +250,17 @@ class VideoPipeline:
         self.depths = depths
         return preds
 
-    def _to_frame_prediction(self, out: Dict[str, np.ndarray], i: int) -> FramePrediction:
-        keep = out["valid"][i] & (out["scores"][i] > self.conf_threshold)
-        idx = np.nonzero(keep)[0]
+    def _to_frame_prediction(self, out: Dict[str, np.ndarray], i: int,
+                             idx: np.ndarray, masks: Optional[np.ndarray]
+                             ) -> FramePrediction:
+        """Frame `i`'s detections at the kept slots `idx`; `masks`: their
+        unpacked masks (None: the step sent none, zeros)."""
         zeros = lambda *s: np.zeros(s, np.float32)
         return FramePrediction(
             boxes=out["boxes"][i][idx],
             scores=out["scores"][i][idx],
             classes=out["classes"][i][idx],
-            masks=(out["full_masks"][i][idx] if "full_masks" in out
+            masks=(masks if masks is not None
                    else zeros(len(idx), self.output_height, self.output_width)),
             planes=(out["planes"][i][idx] if "planes" in out else zeros(len(idx), 3)),
             rot_axis=(out["rot_axis"][i][idx] if "rot_axis" in out

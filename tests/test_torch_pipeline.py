@@ -9,10 +9,18 @@ scores, planes and axes 1e-3 x (1 + max |ref|) (the whole-model drift of
 `tests/test_torch_model.py`); pasted masks may differ on at most 0.1% of
 pixels (soft values at the 0.5 threshold); depth within 1 mm of the u16
 millimetre encoding plus the same relative drift.
+
+The host side alone (no JAX): a stand-in step sends random packed mask
+bits at a width that is not a multiple of 8, and every `FramePrediction`
+field and depth must equal, byte for byte, what unpacking every slot and
+then trimming gives.
 """
+
+import itertools
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -115,3 +123,61 @@ def test_pipeline_pads_last_chunk_with_repeats(pipelines):
     assert len(alone) == 1
     np.testing.assert_array_equal(alone[0].boxes, full[2].boxes)
     np.testing.assert_array_equal(alone[0].masks, full[2].masks)
+
+
+def _sent_chunk(rs, b, d, h, w, kept):
+    """What the step sends for one chunk: random detections and packed mask
+    bits (the last byte's spare bits random too); `kept` picks the slots
+    that pass `valid` and a 0.5 threshold: "empty", "partial" or "full"."""
+    scores = rs.uniform(0.0, 1.0, (b, d)).astype(np.float32)
+    valid = rs.uniform(0.0, 1.0, (b, d)) < 0.7
+    if kept == "empty":
+        valid[:] = False
+    elif kept == "full":
+        valid[:] = True
+        scores[:] = 1.0
+    f32 = lambda *s: rs.normal(size=s).astype(np.float32)
+    return {"boxes": f32(b, d, 4), "scores": scores,
+            "classes": rs.randint(0, 3, (b, d)).astype(np.int64), "valid": valid,
+            "planes": f32(b, d, 3), "rot_axis": f32(b, d, 3), "tran_axis": f32(b, d, 2),
+            "full_masks_packed": rs.randint(0, 256, (b, d, h, -(-w // 8))).astype(np.uint8),
+            "depth_mm": rs.randint(0, 70000, (b, h, w)).astype(np.int32)}
+
+
+@pytest.mark.parametrize("kept", ["empty", "partial", "full"])
+def test_pipeline_unpacks_kept_masks_like_unpacking_every_slot(kept):
+    """Trimming first and unpacking the kept rows once gives the bytes of
+    `np.unpackbits(all).astype(bool)[i][idx]` (every slot unpacked), as a bool
+    (len(idx), H, W) array per frame that no other frame shares; the
+    padded repeat of the last chunk is never read."""
+    out_w, d, thr = 77, 6, 0.5
+    pipe = VideoPipeline(_cfg(pcfg), torch.nn.Linear(1, 1), batch_size=2,
+                         conf_threshold=thr, output_width=out_w, device="cpu")
+    rs = np.random.RandomState(["empty", "partial", "full"].index(kept))
+    sent = []
+
+    def step(batch):
+        sent.append(_sent_chunk(rs, batch.shape[0], d, H, out_w, kept))
+        return {k: torch.from_numpy(v) for k, v in sent[-1].items()}
+
+    pipe.step = step
+    frames = [np.full((H, W, 3), i, np.uint8) for i in range(3)]
+    preds = pipe.run(frames)
+    assert len(sent) == 2 and len(preds) == len(pipe.depths) == 3
+    for f, (p, depth) in enumerate(zip(preds, pipe.depths)):
+        out, i = sent[f // 2], f % 2
+        idx = np.nonzero(out["valid"][i] & (out["scores"][i] > thr))[0]
+        masks = np.unpackbits(out["full_masks_packed"], axis=-1,
+                              count=out_w).astype(bool)[i][idx]
+        assert p.masks.dtype == bool and p.masks.shape == (len(idx), H, out_w)
+        assert p.masks.flags.c_contiguous
+        assert p.masks.tobytes() == masks.tobytes()
+        for key in ("boxes", "scores", "classes", "planes", "rot_axis", "tran_axis"):
+            assert getattr(p, key).tobytes() == out[key][i][idx].tobytes(), key
+        ref = out["depth_mm"].astype(np.uint16).astype(np.float32) / 1000.0
+        assert depth.dtype == np.float32 and depth.tobytes() == ref[i].tobytes()
+    n = [len(p) for p in preds]
+    assert n == [0, 0, 0] if kept == "empty" else (
+        n == [d] * 3 if kept == "full" else 0 < sum(n) < 3 * d)
+    for a, b in itertools.combinations(preds, 2):
+        assert not np.shares_memory(a.masks, b.masks)

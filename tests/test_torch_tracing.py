@@ -257,8 +257,8 @@ def test_pipeline_records_every_span_and_counter(pipeline, two_threads, monkeypa
     monkeypatch.setattr(tracing, "_waits", lambda where: True)     # as on the card
     with tracing.recording() as rec:
         preds = pipe.run(frames[:1])
-        pipe.run(frames[1:])
-    assert len(preds) == 1
+        preds += pipe.run(frames[1:])
+    assert len(preds) == 2
     spans = list(rec.spans)
     by_id = {s.id: s for s in spans}
     names = {s.name for s in spans}
@@ -284,6 +284,9 @@ def test_pipeline_records_every_span_and_counter(pipeline, two_threads, monkeypa
     host_syncs = sum(v for k, v in c.items() if k.startswith("sync."))
     assert host_syncs == sum(s.name == "sync" for s in spans)
     assert c["readback.bytes"] >= 8 * H * W // 8      # the packed masks alone
+    # the host unpacks the kept rows alone, of 8 slots a frame
+    assert c["unpack.rows"] == sum(len(p) for p in preds)
+    assert c["unpack.slots"] == 2 * pipe.config.model.roi_heads.detections_per_image
     assert "k1.launches" not in c                     # the CPU pools with the plain version
     # chunk_walls: from the upload's start to the readback's end, same readings
     last = [s for s in spans if s.call == max(s.call for s in spans)]
