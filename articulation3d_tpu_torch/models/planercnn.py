@@ -326,6 +326,8 @@ class PlaneRCNN(nn.Module):
         `rpn_losses`, SampledROIs).  Frozen heads are not run; with
         "backbone" frozen the features are detached, so no gradient reaches
         the poolers' features and the adjoint never runs (JAX 347-356).
+        The train-mode proposals and the SampledROIs are kept as
+        "train.rois" (`tracing.keep`).
         """
         from ..train.targets import sample_rois  # local: avoids an import cycle
 
@@ -333,14 +335,17 @@ class PlaneRCNN(nn.Module):
         mcfg = cfg.model
         h, w = cfg.input.height, cfg.input.width
         ac = lambda: self._autocast(images.device)
-        feats = self.features(images)
+        with tracing.span("train.backbone"):
+            feats = self.features(images)
         if "backbone" in mcfg.freeze:
             feats = {k: v.detach() for k, v in feats.items()}
-        with ac():
+        with tracing.span("train.rpn"), ac():
             proposals, rpn_raw = self.proposal_generator(
                 feats, image_height=h, image_width=w, training=True)
-        rois = sample_rois(proposals["boxes"], proposals["valid"], gt_boxes,
-                           gt_classes, gt_valid, generators, cfg)
+        with tracing.span("train.sample_rois"):
+            rois = sample_rois(proposals["boxes"], proposals["valid"], gt_boxes,
+                               gt_classes, gt_valid, generators, cfg)
+        tracing.keep("train.rois", proposals=proposals, rois=rois)
         roi_boxes = rois.boxes.detach()
         roi_feats = self.roi_features(feats, training=True)
         b, s = roi_boxes.shape[:2]
@@ -349,10 +354,12 @@ class PlaneRCNN(nn.Module):
             sampling_ratio=hcfg.pooler_sampling_ratio, aligned=aligned,
             valid=rois.is_sampled, training=True)
 
-        pooled = pool(mcfg.box_head, True)
-        with ac():
-            x = self.roi_heads.box_head(pooled.reshape(b * s, *pooled.shape[2:]))
-        scores, deltas = self.roi_heads.box_predictor(x)
+        with tracing.span("train.box_pool"):
+            pooled = pool(mcfg.box_head, True)
+        with tracing.span("train.box_head"):
+            with ac():
+                x = self.roi_heads.box_head(pooled.reshape(b * s, *pooled.shape[2:]))
+            scores, deltas = self.roi_heads.box_predictor(x)
         outputs: Dict[str, Any] = {
             "proposals": proposals, "rpn_raw": rpn_raw,
             "box_scores": scores.reshape(b, s, -1),

@@ -30,6 +30,11 @@ it.  A host wait on the device is a `sync(site, where)` at the line that
 waits: a "sync" span and one count of "sync.<site>" when `where` is on a
 CUDA device (elsewhere nothing waits), so a call's host syncs are the sum
 of the "sync.*" counters.
+
+Apart from the recorder, `keeping()` collects what the program hands to
+`keep(name, **tensors)`: references to tensors it made anyway (a training
+step's proposals, anchor sample and sampled ROIs), with no copy and no
+wait, so that a caller can read a step's discrete choices afterwards.
 """
 
 from __future__ import annotations
@@ -212,3 +217,28 @@ def recording() -> Iterator[Recorder]:
         yield rec
     finally:
         _recorder = None
+
+
+_kept: Optional[Dict[str, dict]] = None     # the active `keeping()` block's
+
+
+def keep(name: str, **tensors) -> None:
+    """Hand `tensors` to the active `keeping()` block under `name` (the
+    last call of a name wins); nothing when none is active."""
+    k = _kept
+    if k is not None:
+        k[name] = tensors
+
+
+@contextlib.contextmanager
+def keeping() -> Iterator[Dict[str, dict]]:
+    """Collect, for the block, what the program `keep`s: yields {name:
+    {field: tensor}}.  One block at a time: opening another inside raises."""
+    global _kept
+    if _kept is not None:
+        raise RuntimeError("a keeping() block is already open")
+    out = _kept = {}
+    try:
+        yield out
+    finally:
+        _kept = None

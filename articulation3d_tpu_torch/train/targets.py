@@ -43,6 +43,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..config import Config
 from ..models.depth_head import depth_l1_loss_masked
 from ..models.heads import double_angle
@@ -146,14 +147,16 @@ def rpn_losses(rpn_raw: Dict, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
     `over_ranks`, normalised over the global batch's images).
 
     rpn_raw: logits [(B, n_l)], deltas [(B, n_l, 4)], anchors [(n_l, 4)]
-    per level (`RPN.forward(training=True)`).
+    per level (`RPN.forward(training=True)`).  The anchor sample is kept as
+    "train.anchors" (`tracing.keep`): matched_idx, labels (1, 0, -1), pos
+    and neg (B, A).
     """
     rcfg = cfg.model.rpn
     anchors = torch.cat(rpn_raw["anchors"], dim=0)                     # (A, 4)
     logits = torch.cat(rpn_raw["logits"], dim=1).to(torch.float32)    # (B, A)
     deltas = torch.cat(rpn_raw["deltas"], dim=1).to(torch.float32)    # (B, A, 4)
     b = logits.shape[0]
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("train.rpn_targets"):
         iou = pairwise_iou(anchors[None], gt_boxes)                    # (B, A, G)
         matched_idx, labels = match_anchors(
             iou, gt_valid, rcfg.iou_thresholds[0], rcfg.iou_thresholds[1],
@@ -162,6 +165,7 @@ def rpn_losses(rpn_raw: Dict, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
                                     rcfg.positive_fraction, generators)
         matched = torch.gather(gt_boxes, 1, matched_idx[..., None].expand(-1, -1, 4))
         tgt = encode_deltas(anchors[None], matched, rcfg.bbox_reg_weights)
+    tracing.keep("train.anchors", matched_idx=matched_idx, labels=labels, pos=pos, neg=neg)
 
     # every rank holds the same number of images
     images = b * process_count() if over_ranks else b

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from .. import tracing
 from ..config import Config
 from ..models.depth_head import BatchNorm2d
 from ..parallel.dist import mean_over_ranks, process_count, process_index
@@ -105,12 +106,15 @@ def compute_losses(model, batch: Mapping[str, torch.Tensor], generator: torch.Ge
     cfg: Config = unwrap(model).config
     icfg = cfg.input
     dev = batch["images"].device
-    mean = torch.tensor(icfg.pixel_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(icfg.pixel_std, dtype=torch.float32, device=dev)
+    with tracing.sync("train_pixel_stats", dev):
+        mean = torch.tensor(icfg.pixel_mean, dtype=torch.float32, device=dev)
+    with tracing.sync("train_pixel_stats", dev):
+        std = torch.tensor(icfg.pixel_std, dtype=torch.float32, device=dev)
     images = (batch["images"].to(torch.float32) - mean) / std
     b, rank = images.shape[0], process_index()
     if isinstance(generator, torch.Generator):
-        gens = per_image_keys(generator, b * process_count())[rank * b:(rank + 1) * b]
+        with tracing.sync("train_keys", dev):       # the seeds come back to the host
+            gens = per_image_keys(generator, b * process_count())[rank * b:(rank + 1) * b]
     else:
         gens = list(generator)
         assert len(gens) == b, (len(gens), b)
@@ -121,8 +125,9 @@ def compute_losses(model, batch: Mapping[str, torch.Tensor], generator: torch.Ge
                           over_ranks=over_ranks)
     losses: Dict[str, torch.Tensor] = {}
     if "proposal_generator" not in cfg.model.freeze:
-        losses.update(rpn_losses(outputs["rpn_raw"], gt_boxes, gt_valid, gens, cfg,
-                                 over_ranks=over_ranks))
+        with tracing.span("train.losses"):      # the anchor matching is "train.rpn_targets"
+            losses.update(rpn_losses(outputs["rpn_raw"], gt_boxes, gt_valid, gens, cfg,
+                                     over_ranks=over_ranks))
     gt = {"boxes": gt_boxes, "classes": batch["gt_classes"], "valid": gt_valid}
     for src, dst in (("gt_masks", "masks"), ("gt_planes", "planes"),
                      ("gt_rot_axis", "rot_axis"), ("gt_tran_axis", "tran_axis"),
@@ -133,16 +138,24 @@ def compute_losses(model, batch: Mapping[str, torch.Tensor], generator: torch.Ge
         gt["masks"] = unpack_bitmasks(batch["gt_masks_packed"], images.shape[2])
     if "gt_depth_mm" in batch:
         gt["depth"] = batch["gt_depth_mm"].to(torch.float32) / 1000.0
-    losses.update(detection_losses(outputs, rois, gt, cfg, over_ranks=over_ranks))
+    with tracing.span("train.losses"):
+        losses.update(detection_losses(outputs, rois, gt, cfg, over_ranks=over_ranks))
     return losses
+
+
+def _backward(loss: torch.Tensor) -> None:
+    with tracing.span("train.backward"):
+        loss.backward()
 
 
 def _update(net, optimizer: torch.optim.Optimizer, scheduler) -> None:
     """The clip (`solver.clip_gradients`), the SGD update and the schedule,
     after the gradients are synced."""
-    clip_gradients(net.config, net)
-    optimizer.step()
-    scheduler.step()
+    with tracing.span("train.clip"):
+        clip_gradients(net.config, net)
+    with tracing.span("train.optimizer"):
+        optimizer.step()
+        scheduler.step()
 
 
 def train_step(model, optimizer: torch.optim.Optimizer, scheduler,
@@ -156,7 +169,7 @@ def train_step(model, optimizer: torch.optim.Optimizer, scheduler,
     optimizer.zero_grad(set_to_none=True)
     losses = compute_losses(model, batch, generator, over_ranks=True)
     total = sum(v.to(torch.float32) for v in losses.values())
-    (total * world if world > 1 else total).backward()
+    _backward(total * world if world > 1 else total)
     _update(net, optimizer, scheduler)
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_loss"] = total.detach()
@@ -187,7 +200,7 @@ def sharded_train_step(model, optimizer: torch.optim.Optimizer, scheduler,
     optimizer.zero_grad(set_to_none=True)
     losses = compute_losses(model, batch, generator)
     total = sum(v.to(torch.float32) for v in losses.values())
-    total.backward()
+    _backward(total)
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_loss"] = total.detach()
     stats = running_statistics(net)

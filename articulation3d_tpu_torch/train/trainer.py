@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from .. import tracing
 from ..config import Config, auto_scale_workers
 from ..data.catalog import get_dataset_dicts, get_metadata
 from ..data.mapper import DetectionLoader, PlaneRCNNMapper, PrefetchLoader
@@ -173,7 +174,9 @@ class Trainer:
     def train(self, max_iter: Optional[int] = None) -> List[Dict[str, float]]:
         """Run steps until `max_iter` (default `solver.max_iter`) are done.
         Returns this call's per-step records: the losses, `total_loss`,
-        `data_s` (the wait for the batch) and `wall_s` (the step)."""
+        `data_s` (the wait for the batch) and `wall_s` (the step).  Each step
+        is the span "train.step" (a call), with the losses' readback
+        "train.readback" inside; "train.images" counts the images stepped."""
         cfg = self.cfg
         max_iter = cfg.solver.max_iter if max_iter is None else max_iter
         os.makedirs(cfg.output_dir, exist_ok=True)
@@ -185,9 +188,15 @@ class Trainer:
             t_data = time.perf_counter()
             batch = self._next_batch()
             t_step = time.perf_counter()
-            metrics = self.step_fn(self.step_model, self.optimizer, self.scheduler,
-                                   to_device(batch, self.device), self.generator)
-            rec = {k: float(v) for k, v in metrics.items()}   # waits for the step
+            with tracing.span("train.step", call=True):
+                tracing.count("train.images", int(batch["images"].shape[0]))
+                metrics = self.step_fn(self.step_model, self.optimizer, self.scheduler,
+                                       to_device(batch, self.device), self.generator)
+                with tracing.span("train.readback"):
+                    rec = {}
+                    for k, v in metrics.items():
+                        with tracing.sync("train_readback", v):   # the first waits for the step
+                            rec[k] = float(v)
             rec["data_s"] = t_step - t_data
             rec["wall_s"] = time.perf_counter() - t_step
             records.append(rec)

@@ -1,0 +1,9 @@
+"""device_idle_pct.train: share of the traced window in which no operation
+ran on the device."""
+
+
+def read(record):
+    tr = record.get("trace")
+    if not tr or tr["window_s"] <= 0 or tr["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

@@ -3,15 +3,19 @@ nesting, parent links, call ids, self time, counters and the bounded
 buffer; one recorder at a time; nothing recorded when off; host syncs
 counted only where the host waits (on the card); the shared clock with
 `torch.profiler` (every span an "a3d.<name>" range with the same parent
-and duration); and the spans and counters of a tiny `VideoPipeline.run`.
+and duration); the spans and counters of a tiny `VideoPipeline.run` and
+of tiny stage-1 `Trainer` steps.
 
 On the card, `host_syncs` (the "sync.*" counters) must equal what
-`torch.cuda.set_sync_debug_mode("warn")` reports for one call:
+`torch.cuda.set_sync_debug_mode("warn")` reports for one pipeline call and
+for one full-width stage-1 training step:
 
     python -m pytest tests/test_torch_tracing.py --noconftest -m cuda -q
 """
 
+import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -22,7 +26,10 @@ from articulation3d_tpu_torch import config as pcfg
 from articulation3d_tpu_torch import tracing
 from articulation3d_tpu_torch.models.planercnn import build_model
 from articulation3d_tpu_torch.ops.nms import nms_mask
+from articulation3d_tpu_torch.train import trainer as trainer_mod
 from articulation3d_tpu_torch.video.pipeline import VideoPipeline
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 H, W = 64, 80
 
@@ -317,3 +324,106 @@ def test_host_syncs_equal_the_sync_debug_modes_count_on_the_card():
     assert got["host_syncs"] == got["sync_debug_warnings"] > 0, got
     assert got["by_site"]["sync.readback"] == len(pipe.step(
         torch.from_numpy(np.stack(frames[:1])).cuda()))
+
+
+# the spans of one stage-1 `Trainer` step with a parent each
+STEP_PARENTS = {
+    "train.step": None,
+    "train.backbone": "train.step",
+    "train.rpn": "train.step",
+    "rpn.head": "train.rpn",
+    "rpn.select": "train.rpn",
+    "train.sample_rois": "train.step",
+    "train.box_pool": "train.step",
+    "train.box_head": "train.step",
+    "train.losses": "train.step",
+    "train.rpn_targets": "train.losses",
+    "train.backward": "train.step",
+    "train.clip": "train.step",
+    "train.optimizer": "train.step",
+    "train.readback": "train.step",
+}
+
+
+def _stage1_trainer(tmp_path, device, overrides=None):
+    cfg = pcfg.load_config(os.path.join(ROOT, "configs", "step1_bbox.yaml"), {
+        "weights": "", "output_dir": str(tmp_path),
+        "solver": {"checkpoint_period": 0}, "test": {"eval_period": 0}, **(overrides or {})})
+    return trainer_mod.Trainer(cfg, loader=None, device=device)
+
+
+def test_training_steps_record_their_spans_and_counters(tmp_path, two_threads, monkeypatch):
+    monkeypatch.setattr(tracing, "_waits", lambda where: True)     # as on the card
+    # the model's own initialisation: the spans need no trained-looking weights
+    monkeypatch.setattr(trainer_mod, "random_state_dict", lambda *a, **k: {})
+    b, h, w = 2, 64, 96
+    trainer = _stage1_trainer(tmp_path, "cpu", {
+        "input": {"height": h, "width": w},
+        "model": {"dtype": "float32", "rpn": {"pre_nms_topk_train": 64, "post_nms_topk_train": 32},
+                  "roi_heads": {"batch_size_per_image": 16}}})
+    rs = np.random.RandomState(0)
+    trainer.loader = [{"images": rs.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+                       "gt_boxes": np.asarray([[[8, 6, 40, 38], [0, 0, 0, 0]],
+                                               [[12, 10, 50, 44], [40, 4, 90, 60]]], np.float32),
+                       "gt_classes": np.asarray([[0, 0], [1, 0]], np.int32),
+                       "gt_valid": np.asarray([[True, False], [True, True]])}]
+    trainer.train(1)
+    with tracing.recording() as rec, tracing.keeping() as kept:
+        records = trainer.train(3)
+    spans = list(rec.spans)
+    by_id = {s.id: s for s in spans}
+    assert {s.name for s in spans} == set(STEP_PARENTS) | {"nms", "sync"}
+    for s in spans:
+        parent = by_id[s.parent].name if s.parent is not None else None
+        if s.name in STEP_PARENTS:
+            assert parent == STEP_PARENTS[s.name], s.name
+        assert by_id[s.call].name == "train.step"
+    assert rec.calls == 2 and len({s.call for s in spans}) == 2
+    assert {by_id[s.parent].name for s in spans if s.name == "nms"} == {"rpn.select"}
+    c = rec.counters
+    assert c["train.images"] == 2 * b
+    assert c["sync.train_readback"] == 2 * len(records[0]) - 2 * 2   # all but data_s, wall_s
+    assert c["sync.train_keys"] == 2 and c["sync.train_pixel_stats"] == 2 * 2
+    assert c["sync.anchors"] == 2 * 5 and c["nms.calls"] == 2 * 5
+    assert c["sync.nms"] >= c["nms.calls"]
+    assert sum(v for k, v in c.items() if k.startswith("sync.")) == \
+        sum(s.name == "sync" for s in spans)
+    assert "k1.launches" not in c and "k2.launches" not in c   # the CPU pools with autograd
+    # the last step's choices, kept without a copy
+    assert set(kept) == {"train.anchors", "train.rois"}
+    assert set(kept["train.anchors"]) == {"matched_idx", "labels", "pos", "neg"}
+    assert int(kept["train.anchors"]["pos"].sum()) > 0
+    rois = kept["train.rois"]["rois"]
+    assert rois.is_sampled.shape == (b, 16) and int(rois.is_fg.sum()) >= 3   # the GT appended
+    assert set(kept["train.rois"]["proposals"]) == {"boxes", "scores", "valid"}
+
+
+def test_keeping_holds_references_and_is_off_by_default():
+    t = torch.ones(3)
+    tracing.keep("x", t=t)                          # no block open: dropped
+    with tracing.keeping() as kept:
+        tracing.keep("x", t=t)
+        tracing.keep("y", u=t, v=t)
+        with pytest.raises(RuntimeError):
+            with tracing.keeping():
+                pass
+    assert kept["x"]["t"] is t and set(kept["y"]) == {"u", "v"}
+    assert tracing._kept is None
+
+
+@pytest.mark.cuda
+def test_training_step_host_syncs_equal_the_sync_debug_modes_count_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from portbench.program_trace import sync_audit
+    from portbench.traffic import train_batches
+    trainer = _stage1_trainer(tmp_path, "cuda")
+    params = {"height": 480, "width": 640, "ims": 16, "pool_batches": 1, "max_instances": 20,
+              "min_boxes": 1, "max_boxes": 6, "min_side": 32, "max_side": 400, "classes": 2}
+    trainer.loader = train_batches.Cycle(train_batches.make_pool(params, 7, "cuda"))
+    trainer.train(2)                    # builds the kernels, tunes cuDNN
+    torch.cuda.synchronize()
+    got = sync_audit(SimpleNamespace(run=lambda _: trainer.train(trainer.iter + 1)), None)
+    assert got["uncounted"] == [], got
+    assert got["host_syncs"] == got["sync_debug_warnings"] > 0, got
+    assert got["by_site"]["sync.train_readback"] == 5, got
