@@ -81,21 +81,35 @@ def select_proposals(level_logits: Sequence[torch.Tensor],
     """Batched `select_proposals_single`.  Per level: logits (B, n),
     deltas (B, n, 4) in (y, x, anchor) order, anchors (n, 4).
     Returns boxes (B, K, 4), scores (B, K), valid (B, K), K = post_nms_topk.
+
+    The levels are stacked as (B, L, N) sets, N the largest level's top-k,
+    each padded with invalid rows (which leave its keep mask unchanged):
+    one decode and one `nms_mask` call serve every level.
     """
-    all_boxes, all_scores, all_valid = [], [], []
-    for scores, deltas, anchors in zip(level_logits, level_deltas, level_anchors):
-        k = min(pre_nms_topk, anchors.shape[0])
+    sizes = [min(pre_nms_topk, a.shape[0]) for a in level_anchors]
+    b, n = level_logits[0].shape[0], max(sizes)
+    dev = level_anchors[0].device
+    set_scores = torch.zeros((b, len(sizes), n), dtype=torch.float32, device=dev)
+    set_deltas = torch.zeros((b, len(sizes), n, 4), dtype=torch.float32, device=dev)
+    set_anchors = torch.zeros((b, len(sizes), n, 4), dtype=torch.float32, device=dev)
+    in_level = torch.zeros((b, len(sizes), n), dtype=torch.bool, device=dev)
+    for i, (scores, deltas, anchors) in enumerate(zip(level_logits, level_deltas,
+                                                      level_anchors)):
+        k = sizes[i]
         top_scores, idx = top_k(scores.to(torch.float32), k)
-        d = torch.gather(deltas.to(torch.float32), 1, idx[..., None].expand(-1, -1, 4))
-        boxes = clip_boxes(decode_deltas(d, anchors[idx], bbox_reg_weights),
-                           image_height, image_width)
-        valid = nonempty(boxes, min_size) & torch.isfinite(boxes).all(dim=-1)
-        all_boxes.append(boxes)
-        all_scores.append(top_scores)
-        all_valid.append(nms_mask(boxes, top_scores, valid, nms_thresh))
-    boxes = torch.cat(all_boxes, dim=1)
-    scores = torch.cat(all_scores, dim=1)
-    idx, out_valid = select_top(scores, torch.cat(all_valid, dim=1), post_nms_topk)
+        set_scores[:, i, :k] = top_scores
+        set_deltas[:, i, :k] = torch.gather(deltas.to(torch.float32), 1,
+                                            idx[..., None].expand(-1, -1, 4))
+        set_anchors[:, i, :k] = anchors[idx]
+        in_level[:, i, :k] = True
+    boxes = clip_boxes(decode_deltas(set_deltas, set_anchors, bbox_reg_weights),
+                       image_height, image_width)
+    valid = in_level & nonempty(boxes, min_size) & torch.isfinite(boxes).all(dim=-1)
+    keep = nms_mask(boxes, set_scores, valid, nms_thresh)
+    # back to the levels' concatenation
+    boxes, scores, kept = (torch.cat([t[:, i, :k] for i, k in enumerate(sizes)], dim=1)
+                           for t in (boxes, set_scores, keep))
+    idx, out_valid = select_top(scores, kept, post_nms_topk)
     top_scores = torch.gather(scores, 1, idx)
     return (torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
             torch.where(out_valid, top_scores, torch.full_like(top_scores, NEG_INF)),

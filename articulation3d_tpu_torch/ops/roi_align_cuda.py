@@ -42,30 +42,18 @@ The output is (B, N, P, P, C) float32 in [row, col, C] order.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-import tempfile
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import tracing
+from . import cuda_build
 from .roi_align import _sample_coords, assign_boxes_to_levels, multilevel_roi_align
 
 MAX_P = 16    # output sizes the kernels' shared-memory arrays hold
 RECORD = ("levels", "y0", "x0", "ny", "nx")   # the (T, 5) record's columns
 # cells per chunk of the plain versions (times C float32 values)
 _CHUNK_CELLS = 1 << 16
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
 
 
 def _cells(lo: torch.Tensor, hi: torch.Tensor, size: torch.Tensor):
@@ -341,78 +329,8 @@ def _roi_record(level_shapes: Sequence[Sequence[int]], boxes: torch.Tensor, *,
 
 
 # --------------------------------------------------------------------------- #
-# the kernels: build, bind, launch
+# the kernels: bind (`cuda_build.py` builds them), launch
 # --------------------------------------------------------------------------- #
-
-_SOURCES = {"roi_align_fwd": "roi_align_fwd.cu", "roi_align_adj": "roi_align_adj.cu"}
-_libs: dict = {}
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [os.path.join(home, "bin", "nvcc")] if home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
-def _source_files(src: str) -> List[str]:
-    """A source and every file of `csrc/` it includes, directly or not."""
-    files, todo = [], [src]
-    while todo:
-        path = todo.pop()
-        if path in files:
-            continue
-        files.append(path)
-        with open(path) as f:
-            todo += [os.path.join(os.path.dirname(path), m)
-                     for m in re.findall(r'^#include "([^"]+)"', f.read(), re.M)]
-    return files
-
-
-def _lib_path(name: str) -> Tuple[str, str]:
-    """(source, shared library) of one kernel; the library's name carries
-    a digest of the source, the headers it includes and the flags."""
-    src = os.path.join(_CSRC, _SOURCES[name])
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for path in _source_files(src):
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return src, os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
-
-
-def build_kernels(names: Sequence[str] = tuple(_SOURCES),
-                  verbose: bool = False) -> Dict[str, str]:
-    """Compile each kernel source into `_build/` (once per source version),
-    one `nvcc` per source, all started together.  Returns {name: path}."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    jobs = {}
-    for name in names:
-        src, path = _lib_path(name)
-        if os.path.exists(path):
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *_NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-            + ["-o", tmp, src]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True), tmp, path)
-    failed = []
-    for name, (proc, tmp, path) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(f"[build] {name}\n{err}", flush=True)
-        os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: _lib_path(name)[1] for name in names}
-
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _OPTS = [_F, _F, _F, _F,                                  # 1/stride per level
@@ -433,13 +351,7 @@ _ARGTYPES = {
 
 
 def _load(name: str = "roi_align_fwd"):
-    if name not in _libs:
-        lib = ctypes.CDLL(build_kernels((name,))[name])
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
+    return cuda_build.load(name, _ARGTYPES[name])
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -9,8 +9,8 @@ non-zero exit):
 
   1. device and build: the card's name and power limit, and the build of
      both ROIAlign kernels (csrc/roi_align_fwd.cu, K1, and
-     csrc/roi_align_adj.cu, K2; one nvcc each, started together) with their
-     ptxas reports;
+     csrc/roi_align_adj.cu, K2) and of the NMS kernel (csrc/nms.cu, K4;
+     one nvcc each, started together) with their ptxas reports;
   2. each kernel against its plain torch version on the card, on a 480x640
      pyramid (C = 256, B = 2) for the box (N = 1000, 7x7, V2, ratio 0),
      mask (N = 100, 14x14, V1, ratio 2) and plane (N = 100, 14x14, V1,
@@ -28,7 +28,10 @@ non-zero exit):
      ROIs whose bins take more than 4 samples (p2 slivers up to 23, the
      120x360 door at p3 with 7), the record exact; and both kernels at
      JAX's cap of 4 (their runtime cap) against the capped plain versions
-     and record;
+     and record; then "[nms]": K4 (csrc/nms.cu) against its plain version
+     at the training RPN's 16 x 5 sets of 2000, the inference RPN's 5 of
+     1000 and the class NMS's one of 2000, keep masks equal bit for bit,
+     with its times beside the plain version's and its bound;
   3. the main path: `VideoPipeline` at full width (R50-FPN, 1000
      proposals, 100 detections, mask/plane/axis/depth heads, the shipped
      configs/config.yaml with seeded random weights and score threshold 0)
@@ -181,7 +184,7 @@ non-zero exit):
  19. a JSON line of kernel measurements, then the device JSON as the last
      line.
 
-`python3 chip_smoke.py --only parity,oracle-rois,f1,train-parity,refine-serve,
+`python3 chip_smoke.py --only parity,oracle-rois,f1,nms,train-parity,refine-serve,
 refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,export-extra,goldens,serving-preset,
 profile-stages` builds the kernels and runs just the named phases of 2, 6, 8 and
 10-18 (any subset; "parity" is
@@ -459,6 +462,98 @@ def phase_oracle_rois(rac, card) -> dict:
     return out
 
 
+def _rpn_nms_sets(b: int, pre_k: int, seed: int, scale: float = 0.3):
+    """The (B, 5, N) sets `select_proposals` hands to `nms_mask`, for random
+    logits and deltas on 480x640 anchors; and the proposals it selects."""
+    import torch
+    from articulation3d_tpu_torch.models import rpn as rpn_mod
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits, deltas, anchors = [], [], []
+    for (h, w), stride, size in zip(((120, 160), (60, 80), (30, 40), (15, 20), (8, 10)),
+                                    (4, 8, 16, 32, 64), (32, 64, 128, 256, 512)):
+        a = torch.from_numpy(rpn_mod.anchors_for_level(h, w, stride, size,
+                                                       (0.5, 1.0, 2.0))).cuda()
+        logits.append(torch.randn((b, a.shape[0]), generator=gen, device="cuda"))
+        deltas.append(torch.randn((b, a.shape[0], 4), generator=gen, device="cuda") * scale)
+        anchors.append(a)
+    seen, nms_mask = [], rpn_mod.nms_mask
+    rpn_mod.nms_mask = lambda *a: seen.append(a) or nms_mask(*a)
+    try:
+        out = rpn_mod.select_proposals(logits, deltas, anchors, image_height=480,
+                                       image_width=640, pre_nms_topk=pre_k,
+                                       post_nms_topk=pre_k // 2, nms_thresh=0.7, min_size=0.0)
+    finally:
+        rpn_mod.nms_mask = nms_mask
+    return seen[0], out
+
+
+def _class_nms_set(seed: int):
+    """The set `batched_nms_mask` hands to `nms_mask` for the class NMS:
+    1000 proposals x 2 classes, decoded with random deltas, class offsets
+    applied."""
+    import torch
+    from articulation3d_tpu_torch.ops import nms
+    from articulation3d_tpu_torch.ops.box_ops import clip_boxes, decode_deltas
+    _, (prop, _, prop_valid) = _rpn_nms_sets(1, 2000, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    r, c = prop.shape[1], 2
+    probs = torch.softmax(torch.randn((1, r, c + 1), generator=gen, device="cuda") * 2,
+                          -1)[..., :c]
+    d = torch.randn((1, r, c, 4), generator=gen, device="cuda")
+    boxes = clip_boxes(decode_deltas(d, prop[:, :, None, :], (10.0, 10.0, 5.0, 5.0)),
+                       480, 640).reshape(1, r * c, 4)
+    scores = probs.reshape(1, r * c)
+    valid = prop_valid.repeat_interleave(c, dim=1) & (scores > 0.05)
+    seen, nms_mask = [], nms.nms_mask
+    nms.nms_mask = lambda *a: seen.append(a) or nms_mask(*a)
+    try:
+        nms.batched_nms_mask(boxes, scores, torch.arange(c, device="cuda").repeat(r)[None],
+                             valid, 0.5)
+    finally:
+        nms.nms_mask = nms_mask
+    return seen[0]
+
+
+def phase_nms(rac, card) -> dict:
+    """K4 (csrc/nms.cu) against its plain version at the main path's three
+    NMS shapes: the training RPN (16 x 5 sets of 2000), the inference RPN
+    (1 x 5 of 1000) and the class NMS (1 set of 2000); keep masks equal bit
+    for bit, then CUDA-event times over 10 calls of the kernel pair alone
+    (sort done), of the wrapper (sort and kernels) and over 3 of the plain
+    version, beside the bound: boxes read and keep mask written at HBM
+    rate; the walk is serial over each set's rows."""
+    import torch
+    from articulation3d_tpu_torch.ops import nms
+    cases = {"train_rpn": _rpn_nms_sets(16, 2000, 0)[0],
+             "infer_rpn": _rpn_nms_sets(1, 1000, 1)[0],
+             "class_nms": _class_nms_set(2)}
+    out = {}
+    for name, (boxes, scores, valid, t) in cases.items():
+        with _recording() as rec:
+            got = nms.nms_mask(boxes, scores, valid, t)
+        want = nms.nms_mask_sweep(boxes, scores, valid, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, int((got != want).sum()))
+        assert rec.counter("nms.launches") == 1 and "sync.nms" not in rec.counters
+        n = boxes.shape[-2]
+        sets = valid.numel() // n
+        order = nms._order(scores, valid)
+        kernel_ms = _time_ms(lambda: nms._nms_cuda(boxes, valid, order, t))
+        wrapper_ms = _time_ms(lambda: nms.nms_mask(boxes, scores, valid, t))
+        plain_ms = _time_ms(lambda: nms.nms_mask_sweep(boxes, scores, valid, t),
+                            iters=3, warmup=1)
+        bound_ms = sets * n * (16 + 1) / HBM_BYTES_PER_S * 1e3
+        kept = int(got.sum())
+        _log(f"[nms] {name:9s} sets={sets:2d} N={n} valid={int(valid.sum())} kept={kept} "
+             f"equal to the plain version; kernel {kernel_ms:.4f} ms, wrapper "
+             f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; bound by bytes "
+             f"{bound_ms:.5f} ms ({kernel_ms / bound_ms:.0f}x); serial walk {n} rows a "
+             f"set, {kept / sets:.0f} kept a set ({card})")
+        out[name] = dict(sets=sets, n=n, kept=kept, kernel_ms=kernel_ms,
+                         wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    return out
+
+
 def _match(ref_boxes, out_boxes, iou_thresh=0.7):
     """Greedy IoU matching in ref order -> (ref_idx, out_idx)."""
     if len(ref_boxes) == 0 or len(out_boxes) == 0:
@@ -525,6 +620,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from articulation3d_tpu_torch.models.planercnn import build_model
+    from articulation3d_tpu_torch.ops import cuda_build
     from articulation3d_tpu_torch.ops import roi_align_cuda as rac
     from articulation3d_tpu_torch.ops.preprocess import preprocess_images
     from articulation3d_tpu_torch.profiling import device_label
@@ -540,7 +636,7 @@ def main() -> int:
     _log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    libs = rac.build_kernels(verbose=True)
+    libs = cuda_build.build_kernels(verbose=True)
     _log(f"[build] {[os.path.relpath(v, ROOT) for v in libs.values()]} in "
          f"{time.perf_counter() - t0:.1f}s")
 
@@ -557,6 +653,7 @@ def main() -> int:
     phase_adjoint_parity(rac)
     oracle_rois = phase_oracle_rois(rac, card)
     f1 = phase_f1(rac)
+    k4 = phase_nms(rac, card)
 
     # 3. main path -------------------------------------------------------
     cfg = _parity_config()
@@ -792,6 +889,12 @@ def main() -> int:
         "float4_atomics": train["adj_atomics"],
         "oracle_proposals": {k: {m: v["adj_" + m] for m in ("kernel_ms", "plain_ms", "bound_ms")}
                              for k, v in oracle_rois.items()},
+    }, {
+        "name": "nms",
+        "route": "cuda",
+        "source": "articulation3d_tpu_torch/csrc/nms.cu",
+        "replaces": None,
+        "shapes": k4,
     }]
     _log(f"[kernels] K1 per inference batch of 8 = box + mask + plane pools; kernel "
          f"alone {tot['kernel_ms']:.4f} ms; K2 per training step (box pool of "
@@ -2913,7 +3016,7 @@ def ranks_worker(rank: int, world: int, store: str, out: str) -> int:
 
     sys.path.insert(0, ROOT)
     from articulation3d_tpu_torch.data.catalog import register_builtin_datasets
-    from articulation3d_tpu_torch.ops import roi_align_cuda as rac
+    from articulation3d_tpu_torch.ops import cuda_build
     from articulation3d_tpu_torch.parallel import barrier, init_distributed, process_count
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2922,7 +3025,7 @@ def ranks_worker(rank: int, world: int, store: str, out: str) -> int:
     import torch.distributed as dist
     expected = "nccl" if world <= torch.cuda.device_count() else "gloo"
     assert dist.get_backend() == expected and process_count() == world
-    rac.build_kernels()
+    cuda_build.build_kernels()
     register_builtin_datasets(os.path.join(ROOT, ".chip_smoke", "datasets"))
     payload = _ranks_payload(distributed=True)
     payload["backend"] = dist.get_backend()
@@ -3727,7 +3830,8 @@ PHASES = {"parity": lambda rac, card: (phase_kernel_parity(rac), phase_adjoint_p
           "remat": lambda rac, card: phase_remat(rac, card, {"steps_per_s": float("nan")}),
           "ddp-cards": lambda rac, card: phase_ranks(card, _cards(), "ddp-cards"),
           "export-extra": _export_extra_alone, "goldens": phase_goldens,
-          "serving-preset": phase_serving_preset, "profile-stages": phase_profile_stages}
+          "serving-preset": phase_serving_preset, "profile-stages": phase_profile_stages,
+          "nms": phase_nms}
 
 
 def _cards() -> int:
@@ -3748,7 +3852,7 @@ def _only_phases() -> list:
     if len(args) != 2 or args[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only parity,oracle-rois,f1,train-parity,"
                          "refine-serve,refine-train,drpn,ddp-1,ddp-2,remat,ddp-cards,"
-                         "export-extra,goldens,serving-preset,profile-stages]")
+                         "export-extra,goldens,serving-preset,profile-stages,nms]")
     names = args[1].split(",")
     bad = [n for n in names if n not in PHASES]
     if bad:
