@@ -84,8 +84,9 @@ def test_fixture_at_tight_gates(name, pooler, biased_weights_file, capsys):
 
 
 def test_port_biased_weights_equal_oracle():
-    """The port's own build of the fixtures' weights (what `chip_smoke.py`
-    loads on the card) equals the oracle's, key for key and bit for bit."""
+    """The port's own build of the fixtures' weights (what
+    `tests/test_torch_card_infer.py` loads on the card) equals the
+    oracle's, key for key and bit for bit."""
     want = bias_state_dict_for_detections(he_state_dict(0))
     got = bias_for_detections(random_state_dict(0))
     assert sorted(got) == sorted(want)

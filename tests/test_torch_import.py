@@ -4,11 +4,12 @@
     (the training slice's `train.*`, the CLI's temporal, export and vis
     modules, the data path, evaluators, `train_net` and `opt_arti`, and
     the data parallelism, the rest of export and vis, the goldens
-    harness and the stage profilers among them) and `chip_smoke.py` and
-    finds neither `jax`, `flax`, `optax` nor `articulation3d_tpu` in
-    `sys.modules`, nor `matplotlib`, which the card's machine does not
-    have;
-  * no import statement in the port or in `chip_smoke.py` names them;
+    harness and the stage profilers among them), `chip_smoke.py`, the card
+    tests and their helpers (`CARD_FILES`) and finds neither `jax`,
+    `flax`, `optax` nor `articulation3d_tpu` in `sys.modules`, nor
+    `matplotlib`, which the card's machine does not have;
+  * no import statement in the port, in `chip_smoke.py` or in the card
+    tests names them;
   * entry points called without a device run on the card, and raise where
     there is none;
   * the CLI runs end to end on the CPU when asked to, `--save-obj`
@@ -27,6 +28,12 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "articulation3d_tpu_torch"
+TESTS = ROOT / "tests"
+# what runs on the card besides the port: the kernel bench, the card tests
+# (`-m cuda --noconftest`) and the helpers they import
+CARD_FILES = [ROOT / "chip_smoke.py"] + [TESTS / f"{name}.py" for name in (
+    "torch_checks", "test_torch_roi_align_cuda", "test_torch_nms_cuda",
+    "test_torch_card_infer", "test_torch_card_train")]
 
 _IMPORT_ALL = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -34,8 +41,9 @@ import articulation3d_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "articulation3d_tpu",
                                     "matplotlib"))
@@ -60,8 +68,8 @@ _PROFILER_MODULES = ("profiling", "profile_inference", "profile_depth", "profile
 
 
 def test_importing_the_port_loads_no_jax():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(ROOT / "chip_smoke.py")],
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(TESTS)]))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, *map(str, CARD_FILES)],
                          capture_output=True, text=True, cwd=str(ROOT), env=env,
                          timeout=300)
     assert out.returncode == 0, out.stderr
@@ -76,7 +84,7 @@ def test_importing_the_port_loads_no_jax():
 def test_no_import_statement_names_jax():
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|articulation3d_tpu)(\.|\s|$)", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + CARD_FILES
     assert len(files) > 10
     assert {f"{m}.py" for m in _TRAIN_MODULES} <= {f.name for f in files
                                                    if f.parent.name == "train"}

@@ -456,27 +456,38 @@ def test_checkpoint_of_two_ranks_resumes_at_one(two_ranks):
     os.remove(path)                          # about 1 GB of weights and momenta
 
 
-def test_chip_smoke_agreement_helpers(monkeypatch):
-    """The measures "[ddp-1]" and "[ddp-2]" gate on, and `--only` naming the
-    new phases."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+def test_chip_smoke_agreement_helpers():
+    """The measures the card's data-parallel tests gate on
+    (`tests/test_torch_card_train.py`)."""
+    from torch_checks import dicts_agree, params_agree
     before = {"w": np.zeros(4), "b": np.ones(2)}
     after = {"w": np.array([0.0, 1.0, 2.0, 4.0]), "b": np.ones(2)}
     off = {"w": after["w"] + [0, 0, 0, 0.002], "b": np.ones(2)}
     # 0.002 against 1e-3 x 4 (the change) + 1e-6 x 4 (the magnitude)
-    assert cs._params_agree(off, after, before) == pytest.approx(0.002 / 0.004004)
-    assert cs._params_agree(off, after, before, rel=1e-2) == pytest.approx(0.002 / 0.040004)
-    assert cs._params_agree(after, after, before) == 0.0
+    assert params_agree(off, after, before) == pytest.approx(0.002 / 0.004004)
+    assert params_agree(off, after, before, rel=1e-2) == pytest.approx(0.002 / 0.040004)
+    assert params_agree(after, after, before) == 0.0
     a = OrderedDict([("AP", 0.5), ("nested", {"x": float("nan")}), ("n", 3)])
     b = OrderedDict([("AP", 0.5 + 1e-9), ("nested", {"x": float("nan")}), ("n", 3)])
-    assert cs._dicts_agree(a, b) == pytest.approx(1e-9)
+    assert dicts_agree(a, b) == pytest.approx(1e-9)
     with pytest.raises(AssertionError):
-        cs._dicts_agree(a, OrderedDict([("n", 3), ("AP", 0.5), ("nested", {"x": 0.0})]))
+        dicts_agree(a, OrderedDict([("n", 3), ("AP", 0.5), ("nested", {"x": 0.0})]))
     with pytest.raises(AssertionError):
-        cs._dicts_agree({"x": float("nan")}, {"x": 0.0})
-    names = ["ddp-1", "ddp-2", "ddp-cards", "export-extra", "goldens"]
-    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--only", ",".join(names)])
-    assert cs._only_phases() == names
+        dicts_agree({"x": float("nan")}, {"x": 0.0})
+
+
+def test_param_samples_strided_over_the_trainable_parameters():
+    """`param_samples`, the samples `params_agree` compares: every
+    trainable tensor at a stride of numel // 4096 (at least 1), float64 on
+    the host; frozen tensors are left out."""
+    from torch_checks import param_samples
+    model = torch.nn.Sequential(torch.nn.Linear(100, 100), torch.nn.Linear(100, 3))
+    model[1].bias.requires_grad_(False)
+    got = param_samples(model)
+    assert sorted(got) == ["0.bias", "0.weight", "1.weight"]
+    w = model[0].weight.detach().reshape(-1).double().numpy()
+    np.testing.assert_array_equal(got["0.weight"], w[::2])      # 10000 // 4096 = 2
+    assert got["0.weight"].dtype == np.float64 and len(got["0.weight"]) == 5000
+    np.testing.assert_array_equal(got["0.bias"], model[0].bias.detach().double().numpy())
+    np.testing.assert_array_equal(got["1.weight"],
+                                  model[1].weight.detach().reshape(-1).double().numpy())

@@ -1,25 +1,24 @@
-"""The helpers of `chip_smoke.py`'s recipe phase, on the CPU at 96x128.
+"""The helpers of the card's recipe tests (`tests/torch_checks.py`, used by
+`tests/test_torch_card_train.py`), on the CPU at 96x128.
 
-  * `_write_recipe_dataset` writes the schema `tools/generate_arti.py`
+  * `write_recipe_dataset` writes the schema `tools/generate_arti.py`
     emits, which both packages' catalogs load: the split sizes, negatives,
     both classes in val, file names that `opt_arti.parse_frame_name`
     groups by video, u16 depth, and the val clips;
-  * `_known_answer_predictions` gives the known answers the phase asserts
-    on the card, here through the port's evaluators and JAX's alike: bbox
+  * `known_answer_predictions` gives the known answers the card tests
+    assert, here through the port's evaluators and JAX's alike: bbox
     and bbox+axis AP 1.0 per class and AUROC 1.0; bbox+axis AP 0 with the
     axes turned by 90 degrees; plane AP 1.0;
-  * `_check_eval_values` lets NaN through only where no GT is in the area
+  * `check_eval_values` lets NaN through only where no GT is in the area
     range or the category;
-  * `_recipe_argv` puts `train_net`'s flags before its overrides;
-  * `_record_pools` keeps the first pools' inputs and hands every call on;
-    `_main_path_err` takes both kinds of pool (on CPU tensors the wrappers
+  * `recipe_argv` puts `train_net`'s flags before its overrides;
+  * `record_pools` keeps the first pools' inputs and hands every call on;
+    `main_path_err` takes both kinds of pool (on CPU tensors the wrappers
     run their plain versions, so the error is that of the bookkeeping).
 """
 
-import importlib.util
 import math
 import os
-
 import types
 
 import cv2
@@ -36,33 +35,24 @@ from articulation3d_tpu_torch.evaluation import ArtiEvaluator, ScannetEvaluator
 from articulation3d_tpu_torch.models.planercnn import PlaneRCNN
 from articulation3d_tpu_torch.ops import roi_align_cuda as rac
 from articulation3d_tpu_torch.train import trainer as trainer_mod
+import torch_checks as cs
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, CLIP = 96, 128, 8
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.fixture(scope="module")
 def recipe(tmp_path_factory):
-    cs = _chip_smoke()
     root = str(tmp_path_factory.mktemp("recipe_data"))
-    splits = cs._write_recipe_dataset(root, h=H, w=W, clip_frames=CLIP)
+    splits = cs.write_recipe_dataset(root, h=H, w=W, clip_frames=CLIP)
     p_catalog.register_builtin_datasets(root)
     j_catalog.register_builtin_datasets(root)
-    yield cs, root, splits
+    yield root, splits
     p_catalog.register_builtin_datasets()
     j_catalog.register_builtin_datasets()
 
 
 def test_recipe_dataset_schema(recipe):
-    cs, root, splits = recipe
+    root, splits = recipe
     for split, (n_pos, per_pos, n_neg, per_neg) in cs.RECIPE_SPLITS.items():
         recs = splits[split]
         assert len(recs) == n_pos * per_pos + n_neg * per_neg
@@ -98,13 +88,13 @@ def test_recipe_dataset_schema(recipe):
 
 
 def test_known_answers(recipe, tmp_path):
-    cs, _, splits = recipe
+    _, splits = recipe
     val = splits["val"]
     res = {}
     for rotate in (False, True):
         for tag, cls in (("port", ArtiEvaluator), ("jax", JaxArtiEvaluator)):
             ev = cls("arti_val", output_dir=str(tmp_path / f"{tag}{rotate}"))
-            ev._predictions = cs._known_answer_predictions(val, rotate_axes=rotate)
+            ev._predictions = cs.known_answer_predictions(val, rotate_axes=rotate)
             res[tag, rotate] = ev.evaluate()
     for c in ("arti_rot", "arti_tran"):
         assert res["port", False][f"bbox - {c}"] == 1.0
@@ -117,12 +107,12 @@ def test_known_answers(recipe, tmp_path):
         a, b = res["jax", rotate], res["port", rotate]
         assert list(a) == list(b)
         assert all(a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
-    assert cs._check_eval_values(res["port", False], "arti_val") == [
+    assert cs.check_eval_values(res["port", False], "arti_val") == [
         k for k, v in res["port", False].items() if math.isnan(v)]
 
     sev = ScannetEvaluator("scannet_val")
     scan_val = p_catalog.get_dataset_dicts("scannet_val")
-    for rec, p in zip(scan_val, cs._known_answer_predictions(scan_val)):
+    for rec, p in zip(scan_val, cs.known_answer_predictions(scan_val)):
         sev.process([{"image_id": rec["image_id"], "file_name": rec["file_name"]}],
                     [{"instances": p["instances"],
                       "pred_plane": [a["plane"] for a in rec["annotations"]]}])
@@ -132,22 +122,21 @@ def test_known_answers(recipe, tmp_path):
 
 
 def test_check_eval_values_allows_nan_only_without_gt(recipe):
-    cs, _, splits = recipe
+    _, splits = recipe
     areas = [(a["bbox"][2] - a["bbox"][0]) * (a["bbox"][3] - a["bbox"][1])
              for r in splits["val"] for a in r["annotations"]]
     assert max(areas) < 96 ** 2                     # no large GT at 96x128
     ok = {"bbox/AP": 3.0, "segm/APl": float("nan"), "auroc": -1}
-    assert cs._check_eval_values(ok, "arti_val") == ["segm/APl"]
+    assert cs.check_eval_values(ok, "arti_val") == ["segm/APl"]
     with pytest.raises(AssertionError):
-        cs._check_eval_values({"bbox/AP": float("nan")}, "arti_val")
+        cs.check_eval_values({"bbox/AP": float("nan")}, "arti_val")
     with pytest.raises(AssertionError):
-        cs._check_eval_values({"bbox+axis - arti_rot": float("inf")}, "arti_val")
+        cs.check_eval_values({"bbox+axis - arti_rot": float("inf")}, "arti_val")
     with pytest.raises(AssertionError):
-        cs._check_eval_values({"segm/AP-arti_rot": float("nan")}, "arti_val")
+        cs.check_eval_values({"segm/AP-arti_rot": float("nan")}, "arti_val")
 
 
 def test_recipe_argv_reaches_the_trainer(recipe, monkeypatch, tmp_path):
-    cs = recipe[0]
     seen = {}
 
     class Stub:
@@ -167,7 +156,7 @@ def test_recipe_argv_reaches_the_trainer(recipe, monkeypatch, tmp_path):
 
     monkeypatch.setattr(trainer_mod, "Trainer", Stub)
     out = str(tmp_path / "s1")
-    train_net.main(cs._recipe_argv("step1_bbox", out, "w.pth", 22, "--max-iter", "22",
+    train_net.main(cs.recipe_argv("step1_bbox", out, "w.pth", 22, "--max-iter", "22",
                                    "--device", "cpu"))
     cfg = seen["cfg"]
     assert seen["max_iter"] == 22 and seen["device"] == "cpu" and seen["resume"] is False
@@ -176,22 +165,13 @@ def test_recipe_argv_reaches_the_trainer(recipe, monkeypatch, tmp_path):
     assert cfg.solver.base_lr == 0.002 and cfg.solver.ims_per_batch == 16
     assert cfg.model.roi_pooler_impl == "cuda" and cfg.model.roi_heads.score_thresh_test == 0.0
     assert cfg.test.eval_period == 0 and cfg.datasets_test == ("arti_val",)
-    _, res = train_net.main(cs._recipe_argv("step3_plane", out, "c.pth", 12, "--eval-only",
+    _, res = train_net.main(cs.recipe_argv("step3_plane", out, "c.pth", 12, "--eval-only",
                                             "--resume", "--device", "cpu"))
     assert seen["resume"] is True and res == {"arti_val": {}}
     assert seen["cfg"].solver.ims_per_batch == 8 and "backbone" in seen["cfg"].model.freeze
 
 
-def test_train_rates():
-    cs = _chip_smoke()
-    recs = [{"data_s": 1.0, "wall_s": 1.0}] * 2 + [{"data_s": 0.1, "wall_s": 0.4}] * 4
-    sps, ips, step, wait = cs._train_rates(recs, 16)
-    assert sps == pytest.approx(2.0) and ips == pytest.approx(32.0)
-    assert step == pytest.approx(2.5) and wait == pytest.approx(0.1)
-
-
 def test_record_pools_and_main_path_err():
-    cs = _chip_smoke()
     rs = np.random.RandomState(0)
     feats = [torch.from_numpy(rs.randn(2, 64 // s, 64 // s, 8).astype(np.float32))
              for s in (4, 8, 16, 32)]
@@ -201,7 +181,7 @@ def test_record_pools_and_main_path_err():
     valid = torch.from_numpy(rs.rand(2, 5) > 0.3)
     stub = types.SimpleNamespace(_pooler_impl=lambda device: "cuda")
     orig = PlaneRCNN._pool
-    pools = cs._record_pools(2)
+    pools = cs.record_pools(2)
     try:
         outs = [PlaneRCNN._pool(stub, feats, boxes, resolution=p, sampling_ratio=sr,
                                 aligned=al, valid=valid, training=tr)
@@ -216,4 +196,4 @@ def test_record_pools_and_main_path_err():
         again = orig(stub, f, b, **kw)
         torch.testing.assert_close(again, want, rtol=0, atol=0)
     assert [kw["training"] for _, _, kw in pools.calls] == [True, False]
-    assert cs._main_path_err(rac, pools.calls, tag="test") <= 1e-6
+    assert cs.main_path_err(rac, pools.calls) <= 1e-6

@@ -1,16 +1,18 @@
-"""The helpers of `chip_smoke.py`'s refine and DRPN phases, on the CPU.
+"""The helpers of the card's refine and DRPN tests, on the CPU, and the
+kernel bench's refusal to run without a card.
 
-  * `_route_agreement` holds the kernel route against the plain route by
-    the matched share, box and plane errors and the IoU of the refined
-    masks' foreground over the matched detections: 1 for equal masks, 0
-    when one route's masks are empty, the pooled ratio in between; and the
-    share of equal pixels, which it reports beside the IoU;
-  * `_only_phases` reads `--only a,b` and refuses unknown phases or other
-    arguments (a run with it prints a partial last line, not the result).
+  * `torch_checks.route_agreement` holds the kernel route against the
+    plain route by the matched share, box and plane errors and the IoU of
+    the refined masks' foreground over the matched detections: 1 for
+    equal masks, 0 when one route's masks are empty, the pooled ratio in
+    between; and the share of equal pixels, which it reports beside the
+    IoU;
+  * `python3 chip_smoke.py` exits non-zero with its reason where there is
+    no card, and prints no result.
 """
 
-import importlib.util
 import os
+import subprocess
 import sys
 import types
 
@@ -18,15 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke_refine",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from torch_checks import ROOT, route_agreement
 
 
 def _dets(boxes, valid, planes):
@@ -56,17 +50,15 @@ def _masks(rs):
 
 
 def test_route_agreement_counts_matches_and_errors():
-    cs = _chip_smoke()
     a, b, _ = _case()
-    agree = cs._route_agreement(a, b)
+    agree = route_agreement(a, b)
     assert agree["matched"] == 1.0 and agree["n_ref"] == 5
     assert agree["box_err"] == pytest.approx(0.5)
-    assert agree["plane_err"] == pytest.approx(1e-3, rel=1e-3)
+    assert agree["head_err"]["planes"] == pytest.approx(1e-3, rel=1e-3)
 
 
 @pytest.mark.parametrize("kind", ["equal", "empty", "half"])
 def test_route_agreement_foreground_iou(kind):
-    cs = _chip_smoke()
     a, b, order = _case()
     ma = _masks(np.random.RandomState(0))
     mb = [ma[0][order].copy(), ma[1].copy()]          # the plain route's order
@@ -75,7 +67,7 @@ def test_route_agreement_foreground_iou(kind):
     if kind == "half":                                 # drop the left half of every mask
         for m in mb:
             m[..., :24] = False
-    agree = cs._route_agreement(a, b, ma, mb)
+    agree = route_agreement(a, b, ma, mb)
     pairs = [(ma[0], mb[0][np.argsort(order)]), (ma[1][:2], mb[1][:2])]
     union = sum(int((x | y).sum()) for x, y in pairs)
     assert agree["fg_union"] == union > 0
@@ -87,13 +79,11 @@ def test_route_agreement_foreground_iou(kind):
         sum(int((x == y).sum()) for x, y in pairs) / size)
 
 
-def test_only_phases(monkeypatch):
-    cs = _chip_smoke()
-    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
-    assert cs._only_phases() == []
-    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--only", "drpn,f1"])
-    assert cs._only_phases() == ["drpn", "f1"]
-    for argv in (["--only", "drpn,nope"], ["--all"], ["--only"]):
-        monkeypatch.setattr(sys, "argv", ["chip_smoke.py", *argv])
-        with pytest.raises(SystemExit):
-            cs._only_phases()
+def test_chip_smoke_exits_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr
+    assert "kernels" not in out.stdout, out.stdout

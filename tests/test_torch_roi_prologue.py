@@ -21,16 +21,15 @@ The JAX prologue caps the adaptive sample count at 4, so the port runs
 here with `adaptive_cap=4`; the uncapped record is pinned in
 `tests/test_torch_goldens.py`.  The kernel's own record is held against
 `_prepare` on the card by
-`tests/test_torch_roi_align_cuda.py` and `chip_smoke.py`.
+`tests/test_torch_roi_align_cuda.py`.
 
-`chip_smoke.py` counts the ROIs that the JAX Pallas kernel pools from a
-coarser level with its own copy of that kernel's rule (`_pallas_moved`;
-the smoke run imports nothing of JAX); the copy equals
+The card tests count the ROIs that the JAX Pallas kernel pools from a
+coarser level with their own copy of that kernel's rule
+(`torch_checks.pallas_moved`; the card has no JAX); the copy equals
 `pallas_level_idx`, ROI for ROI, on these sets and the oracle's 1000
 proposals.
 """
 
-import importlib.util
 import os
 
 import numpy as np
@@ -43,6 +42,7 @@ from articulation3d_tpu.ops import roi_align_pallas as jpal
 from articulation3d_tpu.ops.roi_align import assign_boxes_to_levels as jassign
 
 from articulation3d_tpu_torch.ops import roi_align_cuda as rac
+from torch_checks import pallas_moved
 
 STRIDES = (4, 8, 16, 32)
 POOLS = [(7, 0, True), (14, 2, False), (14, 0, False)]   # box, mask, plane
@@ -130,19 +130,9 @@ def _oracle(rs):
     return np.load(path)["proposal_boxes"].astype(np.float32)[None], None
 
 
-@pytest.fixture(scope="module")
-def smoke():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(root, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("set_name", list(SETS) + ["oracle"])
 @pytest.mark.parametrize("p,sr,aligned", POOLS)
-def test_smoke_move_rule_equals_pallas_level_idx(p, sr, aligned, set_name, smoke):
+def test_smoke_move_rule_equals_pallas_level_idx(p, sr, aligned, set_name):
     boxes, valid = (SETS.get(set_name) or _oracle)(np.random.RandomState(0))
     kw = dict(strides=STRIDES, output_size=p, sampling_ratio=sr, aligned=aligned)
     flat = jnp.asarray(boxes.reshape(-1, 4))
@@ -150,8 +140,8 @@ def test_smoke_move_rule_equals_pallas_level_idx(p, sr, aligned, set_name, smoke
             != np.asarray(jassign(flat)) - 2)
     if valid is not None:
         want &= valid.reshape(-1)
-    got = smoke._pallas_moved(torch.from_numpy(boxes), None if valid is None
-                              else torch.from_numpy(valid), p, sr, aligned)
+    got = pallas_moved(torch.from_numpy(boxes), None if valid is None
+                       else torch.from_numpy(valid), p, sr, aligned)
     np.testing.assert_array_equal(got.numpy(), want)
     if set_name == "oracle":
         assert int(want.sum()) == (891 if (p, sr) == (14, 0) else 821)

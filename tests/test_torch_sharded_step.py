@@ -167,18 +167,6 @@ def _sample(t: torch.Tensor) -> np.ndarray:
     return flat[::max(1, flat.numel() // 4096)].numpy().copy()
 
 
-def _chip_smoke():
-    """`chip_smoke.py` as a module: the bfloat16 sync's recording hook and
-    its check against JAX's order are the ones "[ddp-2]" runs on the
-    card."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
-
-
 def _port_case(case, rank: int, keys: np.ndarray, out: str) -> dict:
     """One `Trainer` step of this rank on its half of the global batch."""
     from articulation3d_tpu_torch import config as pcfg
@@ -189,10 +177,10 @@ def _port_case(case, rank: int, keys: np.ndarray, out: str) -> dict:
     stage, sync = case
     cfg = pcfg.load_config(_config_path(stage),
                            _overrides(stage, sync, os.path.join(out, _case_id(case))))
-    cs = _chip_smoke()
+    from torch_checks import check_bf16_buckets, recording_bf16_hook
     buckets: list = []
     hook = pdist.bf16_grad_sync_hook
-    pdist.bf16_grad_sync_hook = cs._recording_bf16_hook(buckets)
+    pdist.bf16_grad_sync_hook = recording_bf16_hook(buckets)
     try:
         trainer = Trainer(cfg, loader=[_global_batch()], device="cpu")
     finally:
@@ -213,7 +201,7 @@ def _port_case(case, rank: int, keys: np.ndarray, out: str) -> dict:
             "stats": _depth_stats(trainer.model),
             "wrapped": type(trainer.step_model).__name__,
             "step_fn": trainer.step_fn.__name__,
-            "bf16": cs._check_bf16_buckets(buckets, WORLD)}
+            "bf16": check_bf16_buckets(buckets, WORLD)}
 
 
 def _worker(rank: int, world: int, store: str, out: str) -> None:
