@@ -14,6 +14,12 @@ trunk, the kernel pooler) at score threshold 0 with `serving_weights`, on
   * the main path through `VideoPipeline` at batch 8 without one call of
     the torch prologue `_prepare`, and K1's record and output on its own
     pool inputs; the kernel route against the gather route, float32;
+  * the trunk replayed from its CUDA graph (`models/fpn.py`): its maps
+    bit-identical to the eager trunk's, in bf16 and in float32, the
+    capture on a key's second call, returned maps that the next replay
+    leaves alone, the graphs dropped by `.to` and `load_state_dict`, its
+    kernels inside the benchmark's backbone span under `torch.profiler`,
+    and the pipeline's answers at batch 1 and 8 with the graph and without;
   * the temporal stage on the card: the door clip of
     tests/test_temporal_truth.py, the sweeps and the IoU product against
     the CPU's, the detector then track and optimise on a shifted clip;
@@ -29,6 +35,8 @@ trunk, the kernel pooler) at score threshold 0 with `serving_weights`, on
     pool inputs, the training pool's kernel rows against its gather rows.
 """
 
+import contextlib
+import copy
 import dataclasses
 import os
 import random
@@ -147,6 +155,153 @@ def test_kernel_route_matches_the_gather_route(serving):
     assert agree["n_ref"] > 0 and agree["matched"] >= 0.9, agree
     assert agree["box_err"] < 2.0, agree
     assert all(v < 0.75 for v in agree["head_err"].values()), agree
+
+
+# --------------------------------------------------------------------------- #
+# the trunk's CUDA graph
+# --------------------------------------------------------------------------- #
+
+def _trunk_inputs():
+    """Three different frames, each as the trunk takes it (1, 3, 480, 640)."""
+    return [_images(_noise(1, seed)).permute(0, 3, 1, 2).contiguous() for seed in (11, 12, 13)]
+
+
+def _autocast(dtype: str):
+    return (torch.autocast("cuda", dtype=torch.bfloat16) if dtype == "bfloat16"
+            else contextlib.nullcontext())
+
+
+def _trunk_counts(rec) -> tuple:
+    return rec.counter("trunk.graph_captures"), rec.counter("trunk.graph_replays")
+
+
+def _same_maps(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_trunk_graph_replays_the_eager_trunk_bit_for_bit(serving, dtype):
+    """The first call of a key runs eagerly, the second captures and
+    replays, later calls replay; every call's p2..p6 equal the eager body's
+    bit for bit (bf16 autocast, or float32 with TF32 off), and a map handed
+    out by one call is unchanged by the next replay."""
+    from articulation3d_tpu_torch import tracing
+    trunk = serving[2].backbone
+    trunk.graphs.clear()
+    xs = _trunk_inputs()
+    expected = [(0, 0), (1, 1), (1, 2), (1, 3)]
+    with torch.no_grad(), _autocast(dtype), tracing.recording() as rec:
+        kept = []
+        for i, x in enumerate(xs + xs[:1]):
+            out = trunk(x)
+            assert _trunk_counts(rec) == expected[i], (i, rec.counters)
+            assert _same_maps(out, trunk._forward(x)), i
+            assert out["p2"].dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+            kept.append((out, {k: v.clone() for k, v in out.items()}))
+        for i, (out, snapshot) in enumerate(kept):
+            assert _same_maps(out, snapshot), i
+    assert not _same_maps(kept[0][0], kept[1][0])          # the frames differ
+
+
+def test_trunk_graphs_are_dropped_where_the_tensors_move(serving):
+    """`.to(dtype)` on a parent module and `load_state_dict(assign=True)`
+    drop the graphs: the next call of the key runs eagerly, the one after
+    recaptures, and the replay gives the eager answer in the new dtype.  A
+    deepcopy starts with no graph."""
+    from articulation3d_tpu_torch import tracing
+    holder = torch.nn.ModuleDict({"backbone": copy.deepcopy(serving[2].backbone)})
+    trunk = holder["backbone"]
+    x = _trunk_inputs()[0]
+
+    def calls(x, captures):
+        for i in range(3):
+            out = trunk(x)
+            assert rec.counter("trunk.graph_captures") == captures - (i == 0), i
+            assert _same_maps(out, trunk._forward(x)), i
+        return out
+
+    with torch.no_grad(), tracing.recording() as rec:
+        calls(x, 1)
+        holder.to(torch.bfloat16)
+        assert calls(x.to(torch.bfloat16), 2)["p2"].dtype == torch.bfloat16
+        holder.to(torch.float32)
+        back = calls(x, 3)              # the same key as the first: recaptured
+        holder.load_state_dict({k: v.clone() for k, v in holder.state_dict().items()},
+                               assign=True)
+        assert _same_maps(calls(x, 4), back)
+    del holder, trunk
+    torch.cuda.empty_cache()
+
+
+def test_profiler_sees_the_replayed_trunk_inside_the_backbone_span(serving, monkeypatch):
+    """Under `torch.profiler` with the benchmark's hooks on the backbone,
+    `span_stats` gives the replayed trunk its kernels (what
+    `trunk_dev_ms.infer` reads), about as much device time as the eager
+    trunk's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from articulation3d_tpu_torch.models import fpn as pfpn
+    from portbench import tracing as pbtracing
+    trunk = serving[2].backbone
+    trunk.graphs.clear()
+    x = _trunk_inputs()[0]
+
+    def traced():
+        handles = pbtracing.span_hooks({"backbone": trunk})
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with torch.no_grad(), _autocast("bfloat16"):
+                    for _ in range(3):
+                        trunk(x)
+                torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+        return pbtracing.span_stats(prof.events())["backbone"]
+
+    with torch.no_grad(), _autocast("bfloat16"):
+        trunk(x)
+        trunk(x)                        # the capture, before the profiler starts
+    torch.cuda.synchronize()
+    graphed = traced()
+    monkeypatch.setattr(pfpn, "graph_key", lambda x: None)
+    eager = traced()
+    assert graphed["n"] == eager["n"] == 3
+    assert graphed["kernel_us"] > 0.5 * eager["kernel_us"] > 0, (graphed, eager)
+
+
+def _predictions(pipe, frames) -> list:
+    preds = pipe.run(frames)
+    return [(p, d) for p, d in zip(preds, pipe.depths)]
+
+
+def _same_predictions(a: list, b: list) -> bool:
+    fields = ("boxes", "scores", "classes", "masks", "planes", "rot_axis", "tran_axis")
+    return len(a) == len(b) and all(
+        all(np.array_equal(getattr(pa, f), getattr(pb, f)) for f in fields)
+        and np.array_equal(da, db) for (pa, da), (pb, db) in zip(a, b))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_pipeline_answers_with_and_without_the_trunk_graph(serving, batch, monkeypatch):
+    """`VideoPipeline` at batch 1 (three calls: eager, capture, replay) and
+    8 (two calls, twice): the same FramePredictions and depths, bit for
+    bit, as with the graph disabled."""
+    from articulation3d_tpu_torch import tracing
+    from articulation3d_tpu_torch.models import fpn as pfpn
+    from articulation3d_tpu_torch.video.pipeline import VideoPipeline
+    cfg, _, model = serving
+    model.backbone.graphs.clear()
+    pipe = VideoPipeline(cfg, model, batch_size=batch, conf_threshold=0.0)
+    frames = _noise(3 if batch == 1 else 16, 5)
+    with tracing.recording() as rec:
+        graphed = [_predictions(pipe, frames) for _ in range(1 if batch == 1 else 2)]
+    assert _trunk_counts(rec) == (1, len(graphed) * len(frames) // batch - 1), rec.counters
+    monkeypatch.setattr(pfpn, "graph_key", lambda x: None)
+    eager = _predictions(pipe, frames)
+    assert sum(len(p) for p, _ in eager) > 0
+    for g in graphed:
+        assert _same_predictions(g, eager)
 
 
 # --------------------------------------------------------------------------- #

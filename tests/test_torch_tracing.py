@@ -311,6 +311,35 @@ def test_a_cpu_pipeline_makes_no_host_sync(pipeline, two_threads):
     assert rec.counter("nms.calls") == 2 and rec.counter("readback.bytes") > 0
 
 
+def test_the_trunk_takes_no_graph_on_the_cpu_in_training_or_under_grad(pipeline, two_threads,
+                                                                        monkeypatch):
+    """The FPN replays a CUDA graph only for an eval-mode call on the card
+    with grad off: on the CPU, in a training forward (even where a key is
+    given) and under grad it runs its eager body, and counts nothing."""
+    from articulation3d_tpu_torch.models import fpn as pfpn
+    pipe, _ = pipeline
+    trunk = pipe.model.backbone
+    with torch.enable_grad():
+        assert pfpn.graph_key(SimpleNamespace(is_cuda=True)) is None
+    x = torch.from_numpy(np.random.RandomState(3).randn(1, 3, H, W).astype(np.float32))
+    with torch.no_grad():
+        eager = trunk._forward(x)
+    cases = [("cpu", False, False, pfpn.graph_key), ("cpu under grad", False, True, pfpn.graph_key),
+             ("training", True, False, lambda x: ("a key",))]
+    try:
+        with tracing.recording() as rec:
+            for name, training, grad, key in cases:
+                monkeypatch.setattr(pfpn, "graph_key", key)
+                trunk.train(training)
+                with torch.set_grad_enabled(grad):
+                    for _ in range(3):
+                        out = trunk(x)
+                        assert all(torch.equal(out[k], eager[k]) for k in eager), name
+    finally:
+        trunk.eval()
+    assert not [k for k in rec.counters if k.startswith("trunk.")], rec.counters
+
+
 @pytest.mark.cuda
 def test_host_syncs_equal_the_sync_debug_modes_count_on_the_card():
     if not torch.cuda.is_available():
@@ -318,6 +347,7 @@ def test_host_syncs_equal_the_sync_debug_modes_count_on_the_card():
     from portbench.program_trace import sync_audit
     pipe, frames = _tiny_pipeline("cuda")
     pipe.run(frames[:1])                # builds the kernels, tunes cuDNN
+    pipe.run(frames[:1])                # captures the trunk's graph, which syncs once
     torch.cuda.synchronize()
     got = sync_audit(pipe, frames[1:])
     assert got["uncounted"] == [], got
