@@ -327,7 +327,12 @@ class PlaneRCNN(nn.Module):
         "backbone" frozen the features are detached, so no gradient reaches
         the poolers' features and the adjoint never runs (JAX 347-356).
         The train-mode proposals and the SampledROIs are kept as
-        "train.rois" (`tracing.keep`).
+        "train.rois" (`tracing.keep`).  Spans: "train.backbone", "train.rpn",
+        "train.sample_rois", "train.box_pool", "train.box_head", and for the
+        trained heads "train.mask_pool", "train.mask_head",
+        "train.plane_pool", "train.plane_head", "train.depth_head"; the
+        counter "train.head_rows" adds the B x S rows that each trained
+        mask, plane or axis head takes.
         """
         from ..train.targets import sample_rois  # local: avoids an import cycle
 
@@ -366,25 +371,32 @@ class PlaneRCNN(nn.Module):
             "box_deltas": deltas.reshape(b, s, -1),
         }
         trains = lambda name: name not in mcfg.freeze
-        if mcfg.mask_on and trains("roi_heads.mask_head"):
-            mp = pool(mcfg.mask_head, False)
-            with ac():
-                logits = self.roi_heads.mask_head(mp.reshape(b * s, *mp.shape[2:]))
-            outputs["mask_logits"] = logits.reshape(b, s, *logits.shape[1:])
+        mask = mcfg.mask_on and trains("roi_heads.mask_head")
         plane = mcfg.plane_on and trains("roi_heads.plane_head")
         axis = mcfg.axis_on and trains("roi_heads.axis_head")
+        if mask or plane or axis:
+            # every trained mask, plane or axis head takes all B x S rows
+            tracing.count("train.head_rows", b * s)
+        if mask:
+            with tracing.span("train.mask_pool"):
+                mp = pool(mcfg.mask_head, False)
+            with tracing.span("train.mask_head"), ac():
+                logits = self.roi_heads.mask_head(mp.reshape(b * s, *mp.shape[2:]))
+            outputs["mask_logits"] = logits.reshape(b, s, *logits.shape[1:])
         if plane or axis:
-            pp = pool(mcfg.plane_head, False)
+            with tracing.span("train.plane_pool"):
+                pp = pool(mcfg.plane_head, False)
             flat = pp.reshape(b * s, *pp.shape[2:])
             with ac():
                 if plane:
-                    outputs["plane_pred"] = self.roi_heads.plane_head(flat).reshape(b, s, -1)
+                    with tracing.span("train.plane_head"):
+                        outputs["plane_pred"] = self.roi_heads.plane_head(flat).reshape(b, s, -1)
                 if axis:
                     rot, tran = self.roi_heads.axis_head(flat)
                     outputs["rot_pred"] = rot.reshape(b, s, -1)
                     outputs["tran_pred"] = tran.reshape(b, s, -1)
         if mcfg.depth_on and trains("depth_head"):
-            with ac():
+            with tracing.span("train.depth_head"), ac():
                 outputs["depth_pred"] = self.depth_head(
                     feats, train=True, over_ranks=over_ranks).to(torch.float32)
         if self._refines():

@@ -171,7 +171,11 @@ def _gather_pool(flat_rows: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     sw = y_mask[:, :, :, None, None] * x_mask[:, None, None, :, :]
     pooled = torch.zeros((k, p, p, c), dtype=torch.float32, device=flat_rows.device)
     for corner in range(4):
-        rows = flat_rows[idx[..., corner].reshape(-1)]
+        # index_select, not flat_rows[...]: the same rows, but its backward
+        # is index_add_, which sums in index order on the CPU, where the
+        # advanced index's (index_put_ with accumulate) order depends on the
+        # threads, so that a training step's gradients varied from run to run
+        rows = torch.index_select(flat_rows, 0, idx[..., corner].reshape(-1))
         rows = rows.reshape(k, p, s, p, s, c).to(torch.float32)
         wgt = (w[..., corner] * sw)[..., None]
         pooled = pooled + (rows * wgt).sum(dim=(2, 4))

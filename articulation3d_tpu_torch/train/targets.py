@@ -237,8 +237,9 @@ def crop_gt_masks(gt_masks: torch.Tensor, matched_idx: torch.Tensor,
     _, h, w = gt_masks.shape
     s = boxes.shape[0]
     dev = boxes.device
-    ys, xs, y_mask, x_mask = _sample_coords(boxes.to(torch.float32), 1.0,
-                                            mask_size, 2, True)
+    with tracing.sync("train_mask_targets", dev):   # the scale 1.0 goes up to the device
+        ys, xs, y_mask, x_mask = _sample_coords(boxes.to(torch.float32), 1.0,
+                                                mask_size, 2, True)
     n2 = torch.full((s,), 2, dtype=torch.int64, device=dev)
     zero = torch.zeros((s,), dtype=torch.int64, device=dev)
     ry = _separable_weights(ys, y_mask, n2, torch.full_like(n2, h), zero, h)
@@ -257,7 +258,9 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict, cfg: Config,
     """All ROI-head and depth losses from `PlaneRCNN.train_forward`'s
     outputs; `gt` holds the padded per-image arrays (module docstring).
     The normalisers count this rank's rows, or with `over_ranks` the
-    global batch's."""
+    global batch's.  Kept (`tracing.keep`): "train.mask_targets" (the
+    (B, S, M, M) GT crops), "train.planes" (the (B x S, 3) plane
+    predictions the L1 takes) and "train.depth" (the depth prediction)."""
     mcfg = cfg.model
     losses: Dict[str, torch.Tensor] = {}
     b, s = rois.boxes.shape[:2]
@@ -298,9 +301,10 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict, cfg: Config,
     if "mask_logits" in outputs:
         mlogits = flat(outputs["mask_logits"]).to(torch.float32)   # (BS, 1|C, M, M)
         msize = mlogits.shape[-1]
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("train.mask_targets"):
             mtgt = torch.stack([crop_gt_masks(gt["masks"][i], midx[i], rois.boxes[i], msize)
                                 for i in range(b)])
+        tracing.keep("train.mask_targets", targets=mtgt)
         ml = mlogits[:, 0] if mlogits.shape[1] == 1 else mlogits[rows, safe_cls]
         per_roi = _bce_with_logits(ml, flat(mtgt)).mean(dim=(1, 2))
         losses["loss_mask"] = masked_sum(per_roi, fg) / num_fg
@@ -310,6 +314,7 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict, cfg: Config,
         gt_planes = flat(gather_gt("planes")).to(torch.float32)
         if mcfg.plane_head.normal_only:
             gt_planes = gt_planes / gt_planes.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        tracing.keep("train.planes", pred=pp.detach())
         l1 = smooth_l1_loss(pp, gt_planes, 0.0)
         losses["loss_plane"] = mcfg.plane_head.loss_weight * masked_sum(l1, fg) / num_fg
 
@@ -338,6 +343,7 @@ def detection_losses(outputs: Dict, rois: SampledROIs, gt: Dict, cfg: Config,
             for i in range(b))
 
     if "depth_pred" in outputs:
+        tracing.keep("train.depth", pred=outputs["depth_pred"].detach())
         losses["depth_loss"] = mcfg.depth_head.loss_weight * depth_l1_loss_masked(
             outputs["depth_pred"].to(torch.float32), gt["depth"].to(torch.float32),
             over_ranks)

@@ -1,0 +1,9 @@
+"""depth_dev_ms.train_s3: device time of the kernels launched inside the
+program's "a3d.train.depth_head" range (the depth decoder's train-mode
+forward), per traced step."""
+
+
+def read(record):
+    tr = record.get("trace")
+    us = (tr or {}).get("spans", {}).get("train.depth_head", {}).get("kernel_us", 0.0)
+    return us / len(tr["calls"]) * 1e-3 if us > 0 and tr.get("calls") else None

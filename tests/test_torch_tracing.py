@@ -4,11 +4,11 @@ buffer; one recorder at a time; nothing recorded when off; host syncs
 counted only where the host waits (on the card); the shared clock with
 `torch.profiler` (every span an "a3d.<name>" range with the same parent
 and duration); the spans and counters of a tiny `VideoPipeline.run` and
-of tiny stage-1 `Trainer` steps.
+of tiny stage-1 and stage-3 `Trainer` steps.
 
 On the card, `host_syncs` (the "sync.*" counters) must equal what
 `torch.cuda.set_sync_debug_mode("warn")` reports for one pipeline call and
-for one full-width stage-1 training step:
+for one full-width stage-1 and stage-3 training step:
 
     python -m pytest tests/test_torch_tracing.py --noconftest -m cuda -q
 """
@@ -376,11 +376,31 @@ STEP_PARENTS = {
 }
 
 
-def _stage1_trainer(tmp_path, device, overrides=None):
-    cfg = pcfg.load_config(os.path.join(ROOT, "configs", "step1_bbox.yaml"), {
+# the spans of one stage-3 `Trainer` step (frozen detector: no RPN losses)
+STEP3_PARENTS = dict(
+    {k: v for k, v in STEP_PARENTS.items() if k != "train.rpn_targets"},
+    **{"train.mask_pool": "train.step", "train.mask_head": "train.step",
+       "train.plane_pool": "train.step", "train.plane_head": "train.step",
+       "train.depth_head": "train.step", "train.mask_targets": "train.losses"})
+HEAD_SPANS = set(STEP3_PARENTS) - set(STEP_PARENTS)
+
+
+def _trainer(tmp_path, device, overrides=None, stage="step1_bbox"):
+    cfg = pcfg.load_config(os.path.join(ROOT, "configs", f"{stage}.yaml"), {
         "weights": "", "output_dir": str(tmp_path),
         "solver": {"checkpoint_period": 0}, "test": {"eval_period": 0}, **(overrides or {})})
     return trainer_mod.Trainer(cfg, loader=None, device=device)
+
+
+def _plane_batches(b, h, w, device, pool_batches=1):
+    """Stage-3 batches from the stage-3 cell's generator."""
+    from portbench.traffic import train_planes
+    return train_planes.make_pool({
+        "height": h, "width": w, "ims": b, "pool_batches": pool_batches, "max_instances": 20,
+        "min_planes": 4, "max_planes": 12, "min_side": min(48, h // 2),
+        "max_side": min(480, h), "min_visible": min(32, h // 8), "min_offset": 0.5,
+        "max_offset": 5.0, "depth_grid": [6, 8], "min_depth_mm": 500, "max_depth_mm": 8000,
+        "hole_share": 0.1}, 7, device)
 
 
 def test_training_steps_record_their_spans_and_counters(tmp_path, two_threads, monkeypatch):
@@ -388,7 +408,7 @@ def test_training_steps_record_their_spans_and_counters(tmp_path, two_threads, m
     # the model's own initialisation: the spans need no trained-looking weights
     monkeypatch.setattr(trainer_mod, "random_state_dict", lambda *a, **k: {})
     b, h, w = 2, 64, 96
-    trainer = _stage1_trainer(tmp_path, "cpu", {
+    trainer = _trainer(tmp_path, "cpu", {
         "input": {"height": h, "width": w},
         "model": {"dtype": "float32", "rpn": {"pre_nms_topk_train": 64, "post_nms_topk_train": 32},
                   "roi_heads": {"batch_size_per_image": 16}}})
@@ -420,6 +440,7 @@ def test_training_steps_record_their_spans_and_counters(tmp_path, two_threads, m
     assert sum(v for k, v in c.items() if k.startswith("sync.")) == \
         sum(s.name == "sync" for s in spans)
     assert "k1.launches" not in c and "k2.launches" not in c   # the CPU pools with autograd
+    assert "train.head_rows" not in c and not HEAD_SPANS & {s.name for s in spans}
     # the last step's choices, kept without a copy
     assert set(kept) == {"train.anchors", "train.rois"}
     assert set(kept["train.anchors"]) == {"matched_idx", "labels", "pos", "neg"}
@@ -427,6 +448,43 @@ def test_training_steps_record_their_spans_and_counters(tmp_path, two_threads, m
     rois = kept["train.rois"]["rois"]
     assert rois.is_sampled.shape == (b, 16) and int(rois.is_fg.sum()) >= 3   # the GT appended
     assert set(kept["train.rois"]["proposals"]) == {"boxes", "scores", "valid"}
+
+
+def test_stage3_steps_record_the_head_spans_and_rows(tmp_path, two_threads, monkeypatch):
+    monkeypatch.setattr(tracing, "_waits", lambda where: True)     # as on the card
+    monkeypatch.setattr(trainer_mod, "random_state_dict", lambda *a, **k: {})
+    b, h, w, s = 2, 64, 96, 16
+    trainer = _trainer(tmp_path, "cpu", {
+        "input": {"height": h, "width": w},
+        "model": {"dtype": "float32", "rpn": {"pre_nms_topk_train": 64, "post_nms_topk_train": 32},
+                  "roi_heads": {"batch_size_per_image": s},
+                  "depth_head": {"output_height": h, "output_width": w}}}, stage="step3_plane")
+    trainer.loader = _plane_batches(b, h, w, "cpu")
+    trainer.train(1)
+    with tracing.recording() as rec, tracing.keeping() as kept:
+        records = trainer.train(3)
+    spans = list(rec.spans)
+    by_id = {s.id: s for s in spans}
+    assert {s.name for s in spans} == set(STEP3_PARENTS) | {"nms", "sync"}
+    for sp in spans:
+        parent = by_id[sp.parent].name if sp.parent is not None else None
+        if sp.name in STEP3_PARENTS:
+            assert parent == STEP3_PARENTS[sp.name], sp.name
+        assert by_id[sp.call].name == "train.step"
+    assert rec.calls == 2
+    assert sum(sp.name in HEAD_SPANS for sp in spans) == 2 * len(HEAD_SPANS)
+    c = rec.counters
+    assert c["train.head_rows"] == 2 * b * s and c["train.images"] == 2 * b
+    assert c["sync.train_mask_targets"] == 2 * b           # once an image
+    assert c["sync.train_readback"] == 2 * len(records[0]) - 2 * 2   # all but data_s, wall_s
+    assert set(records[0]) == {"loss_mask", "loss_plane", "depth_loss", "total_loss",
+                               "data_s", "wall_s"}
+    # the last step's choices and the predictions its L1s take, for a judge
+    assert set(kept) == {"train.rois", "train.mask_targets", "train.planes", "train.depth"}
+    assert kept["train.mask_targets"]["targets"].shape == (b, s, 28, 28)
+    assert kept["train.planes"]["pred"].shape == (b * s, 3)
+    assert kept["train.depth"]["pred"].shape == (b, h, w)
+    assert not kept["train.planes"]["pred"].requires_grad
 
 
 def test_keeping_holds_references_and_is_off_by_default():
@@ -443,19 +501,31 @@ def test_keeping_holds_references_and_is_off_by_default():
 
 
 @pytest.mark.cuda
-def test_training_step_host_syncs_equal_the_sync_debug_modes_count_on_the_card(tmp_path):
+@pytest.mark.parametrize("stage", ["step1_bbox", "step3_plane"])
+def test_training_step_host_syncs_equal_the_sync_debug_modes_count_on_the_card(tmp_path, stage):
+    """Stage 3 also shows that its head, target and depth spans and the
+    `train.head_rows` counter add no host wait."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     from portbench.program_trace import sync_audit
     from portbench.traffic import train_batches
-    trainer = _stage1_trainer(tmp_path, "cuda")
-    params = {"height": 480, "width": 640, "ims": 16, "pool_batches": 1, "max_instances": 20,
-              "min_boxes": 1, "max_boxes": 6, "min_side": 32, "max_side": 400, "classes": 2}
-    trainer.loader = train_batches.Cycle(train_batches.make_pool(params, 7, "cuda"))
+    trainer = _trainer(tmp_path, "cuda", stage=stage)
+    if stage == "step1_bbox":
+        params = {"height": 480, "width": 640, "ims": 16, "pool_batches": 1,
+                  "max_instances": 20, "min_boxes": 1, "max_boxes": 6, "min_side": 32,
+                  "max_side": 400, "classes": 2}
+        pool = train_batches.make_pool(params, 7, "cuda")
+    else:
+        pool = _plane_batches(8, 480, 640, "cuda")
+    trainer.loader = train_batches.Cycle(pool)
     trainer.train(2)                    # builds the kernels, tunes cuDNN
     torch.cuda.synchronize()
     got = sync_audit(SimpleNamespace(run=lambda _: trainer.train(trainer.iter + 1)), None)
     assert got["uncounted"] == [], got
     assert got["host_syncs"] == got["sync_debug_warnings"] > 0, got
-    assert got["by_site"]["sync.train_readback"] == 5, got
+    losses = 5 if stage == "step1_bbox" else 4         # and total_loss
+    assert got["by_site"]["sync.train_readback"] == losses, got
+    # the GT crops' scale goes up to the device once an image
+    assert got["by_site"].get("sync.train_mask_targets", 0) == (
+        8 if stage == "step3_plane" else 0), got
     assert "sync.nms" not in got["by_site"], got      # K4 makes no host wait
